@@ -1,0 +1,277 @@
+"""Adaptive Gauss-Hermite quadrature over one hyperparameter theta.
+
+The counterpart of the `aghq` R package machinery (aghq::
+marginal_laplace_tmb, k = 4 by default): find the mode of the Laplace
+marginal nll(theta), adapt a Gauss-Hermite rule with the mode and the
+outer curvature, and form the log normalizing constant and the theta
+marginal. The fit is a host loop over warm-started Laplace evaluations
+of the backend (fast/iwp.FastIWPBackend); each evaluation runs its
+linear algebra on the backend's device.
+
+Conventions match aghq/mvQuad 'GHe': nodes are probabilists' Hermite
+roots; weights integrate f against Lebesgue measure for f ~ poly x
+exp(-z^2/2), i.e. w_i = hermegauss_w_i * exp(z_i^2 / 2); adapted nodes
+theta_j = mode + L z_j with weight multiplier det(L).
+"""
+from __future__ import annotations
+
+import itertools
+import math
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+# outer optimizer: gradient tolerance, iteration cap, the f64 noise level
+# of the nll value, and the central-difference step of the outer Hessian
+TOL = 1e-9
+MAX_ITER = 40
+F_NOISE = 1e-9
+H_FD = 1e-4
+
+
+def ghe_rule(k: int):
+    """Probabilists' Gauss-Hermite: integrates g(z) ~ poly * e^{-z^2/2}.
+
+    Returns (nodes, weights) with sum_i w_i g(z_i) ~= int g(z) dz.
+    """
+    z, w = np.polynomial.hermite_e.hermegauss(k)
+    return z, w * np.exp(z ** 2 / 2.0)
+
+
+def product_grid(k: int, s: int):
+    """(k^s, s) node matrix and (k^s,) log-weights of the product rule."""
+    z1, w1 = ghe_rule(k)
+    nodes = np.array(list(itertools.product(z1, repeat=s)))
+    logw = np.sum(np.log(w1)[
+        np.array(list(itertools.product(range(k), repeat=s)))], axis=1)
+    return nodes, logw
+
+
+def _logsumexp_np(lw):
+    lw = np.asarray(lw)
+    m = lw.max()
+    return float(m + np.log(np.sum(np.exp(lw - m))))
+
+
+@dataclass
+class AGHQFit:
+    """Everything downstream code needs (mirrors aghq's fit object)."""
+    mode: np.ndarray              # theta mode (s,)
+    hessian: np.ndarray           # outer Hessian at mode (s, s)
+    L: np.ndarray                 # lower chol of H^{-1} (adaptation)
+    nodes: np.ndarray             # (J, s) adapted theta nodes
+    logw: np.ndarray              # (J,) adapted log weights (incl. det L)
+    lognll: np.ndarray            # (J,) laplace nll at nodes
+    lognormconst: float
+    states: Any                   # per-node (V, tail, factor)
+    k: int
+    backend: Any = None
+    marginals: list = field(default_factory=list)  # per-dim (theta, logpdf)
+
+    @property
+    def logpost_nodes(self):
+        """Normalized log posterior at the nodes."""
+        return -self.lognll - self.lognormconst
+
+
+def optimize_1d(backend, theta0: float = 0.0, tol: float = TOL,
+                max_iter: int = MAX_ITER):
+    """(mode, H, latent state at the mode) for one hyperparameter.
+
+    Secant-Newton on the root of the implicit-function gradient, in the
+    order the JAX package's single-program fit runs it: a boot
+    evaluation at theta0; EM-style jumps th + log(d / (2(g - hp') + d))
+    while far from the mode (d = em_dims[0], hp' the slope of the
+    exponential hyperprior); secant steps under a trust cap that doubles
+    (to 16) on consecutive full steps in one direction and shrinks 4x on
+    a rejected step; a sign flip of the gradient within a short step
+    triggers one final secant interpolation and stops. Then the outer
+    curvature by central differences of the gradient at mode +/- H_FD,
+    both warm-started from the mode's latent state."""
+    dev = backend.device
+    em_dim = float(backend.em_dims[0])
+    em_phi = float(-math.log(float(np.asarray(backend.md.alpha)[0]))
+                   / float(np.asarray(backend.md.u)[0]))
+
+    def vg(th, state):
+        val, g, st = backend.value_and_grad(
+            torch.tensor([th], dtype=torch.float64, device=dev), state)
+        return float(val), float(g[0]), st
+
+    th, f, g, state = float(theta0), math.inf, 0.0, backend.init_state()
+    h_est, cap, last_dir = 0.0, 2.0, 0.0
+    final, th_root = False, 0.0
+    for it in range(max_iter):
+        boot = it == 0
+        h = h_est if h_est > 0 else max(abs(g), 1.0)
+        step = float(np.clip(g / h, -cap, cap))
+        hp = 0.5 - 0.5 * em_phi * math.exp(-0.5 * th)
+        A = 2.0 * (g - hp) + em_dim
+        em = float(np.clip(math.log(em_dim) - math.log(max(A, 1e-4 * em_dim)),
+                           -8.0, 8.0))
+        # far from the mode and not recovering from a rejection
+        use_em = abs(em) > 0.5 and cap >= 2.0 and not boot
+        if use_em:
+            step = -em
+        if boot:
+            step = 0.0
+        full = (not use_em) and abs(step) >= cap * 0.999
+        if full and np.sign(step) == last_dir:
+            cap2 = min(cap * 2.0, 16.0)
+        else:
+            cap2 = cap if full else 2.0
+        ldir2 = float(np.sign(step)) if full else 0.0
+        cand = th_root if final else th - step
+        f_t, g_t, st_t = vg(cand, state)
+        guard = max(1e3 * F_NOISE * (1.0 + abs(f)), 1e-8)
+        ok = math.isfinite(f_t) and f_t <= f + guard
+        # the final secant evaluation is accepted unless it is not finite
+        acc = ok or (final and math.isfinite(f_t))
+        dth = cand - th
+        h_new = (g_t - g) / dth if acc and abs(dth) > 1e-12 else h_est
+        if not (math.isfinite(h_new) and h_new > 0):
+            h_new = h_est
+        flip = (acc and not final and not boot
+                and np.sign(g_t) != np.sign(g)
+                and abs(dth) < 0.05 * (1.0 + abs(cand)))
+        denom = g_t - g
+        th_root = cand - g_t * dth / denom if abs(denom) > 1e-300 else cand
+        if acc:
+            th, f, g, state = cand, f_t, g_t, st_t
+        small = h_new > 0 and abs(g / max(h_new, 1e-12)) < 1e-4
+        done = final or abs(g) < tol or (not flip and acc and small)
+        cap = cap2 if acc else cap * 0.25
+        last_dir = ldir2 if acc else last_dir
+        final, h_est = flip, h_new
+        if done:
+            break
+    g_plus = vg(th + H_FD, state)[1]
+    g_minus = vg(th - H_FD, state)[1]
+    H = (g_plus - g_minus) / (2 * H_FD)
+    return th, H, state
+
+
+def aghq_fit(backend, k: int = 4, theta0=None) -> AGHQFit:
+    """Full s=1 AGHQ pipeline: optimize, adapt, evaluate the k nodes
+    (each warm-started from the mode's latent state) and form the
+    marginal. The posterior draws are sampling.sample_marginal's."""
+    if backend.n_theta != 1:
+        raise NotImplementedError(
+            "AGHQ over more than one hyperparameter is not ported yet "
+            "(ROADMAP Queue 1 item 6)")
+    th0 = 0.0 if theta0 is None else float(np.atleast_1d(theta0)[0])
+    mode, H, st = optimize_1d(backend, th0)
+    z1, _ = ghe_rule(k)
+    Lad = 1.0 / math.sqrt(max(abs(H), 1e-8))
+    nodes = mode + Lad * z1
+    nlls, states = [], []
+    for th_j in nodes:
+        th_t = torch.tensor([th_j], dtype=torch.float64,
+                            device=backend.device)
+        val, (V, tail), factor = backend.laplace_eval_full(th_t, st)
+        nlls.append(val)
+        states.append((V, tail, factor))
+    nlls = torch.stack(nlls).cpu().numpy()
+    _, logw_base = product_grid(k, 1)
+    logw = logw_base + math.log(Lad)
+    lognormconst = _logsumexp_np(-nlls + logw)
+    fit = AGHQFit(mode=np.asarray([mode]), hessian=np.asarray([[H]]),
+                  L=np.asarray([[Lad]]), nodes=nodes.reshape(k, 1),
+                  logw=logw, lognll=nlls, lognormconst=lognormconst,
+                  states=states, k=k, backend=backend)
+    fit.marginals = [marginal_posterior(fit, 0)]
+    return fit
+
+
+def marginal_posterior(fit: AGHQFit, j: int = 0):
+    """Marginal of theta_j; for s=1 the node values themselves.
+    Returns dict(theta=(k,), logmargpost=(k,)) sorted by theta."""
+    if len(fit.mode) != 1:
+        raise NotImplementedError(
+            "marginals over more than one hyperparameter are not ported "
+            "yet (ROADMAP Queue 1 item 6)")
+    order = np.argsort(fit.nodes[:, 0])
+    return {"theta": fit.nodes[order, 0],
+            "logmargpost": (-fit.lognll - fit.lognormconst)[order]}
+
+
+def compute_moment(fit: AGHQFit, fn: Callable = None):
+    """E[fn(theta)] under the AGHQ posterior (aghq::compute_moment)."""
+    if fn is None:
+        fn = lambda x: x
+    vals = np.array([fn(th) for th in fit.nodes])
+    w = np.exp(fit.logpost_nodes + fit.logw)
+    return (vals * w[:, None] if vals.ndim > 1 else vals * w).sum(axis=0)
+
+
+def interpolate_log_marginal(marg, method: str = "spline"):
+    """Interpolant of logmargpost on the log scale: R's natural cubic
+    spline (splinefun method='natural'), extrapolated linearly."""
+    from scipy.interpolate import CubicSpline
+    theta, lp = marg["theta"], marg["logmargpost"]
+    if len(theta) < 3 or method == "polynomial":
+        coef = np.polyfit(theta, lp, deg=len(theta) - 1)
+        return lambda x: np.polyval(coef, x)
+    cs = CubicSpline(theta, lp, bc_type="natural", extrapolate=True)
+    dleft = float(cs.derivative()(theta[0]))
+    dright = float(cs.derivative()(theta[-1]))
+
+    def interp(x):
+        x = np.asarray(x, np.float64)
+        y = cs(x)
+        y = np.where(x < theta[0], lp[0] + dleft * (x - theta[0]), y)
+        y = np.where(x > theta[-1], lp[-1] + dright * (x - theta[-1]), y)
+        return y
+
+    return interp
+
+
+def compute_pdf_and_cdf(marg, transformation=None, finegrid=None):
+    """Fine-grid pdf/cdf of one theta marginal (aghq::compute_pdf_and_cdf:
+    range extended by half its width on each side, 1000 points, cdf by
+    left-Riemann cumsum)."""
+    interp = interpolate_log_marginal(marg)
+    theta = marg["theta"]
+    if finegrid is None:
+        rn = theta.max() - theta.min()
+        finegrid = np.linspace(theta.min() - rn / 2, theta.max() + rn / 2,
+                               1000)
+    pdf = np.exp(interp(finegrid))
+    cdf = np.cumsum(pdf * np.concatenate([[0.0], np.diff(finegrid)]))
+    out = {"theta": finegrid, "pdf": pdf, "cdf": cdf}
+    if transformation is not None:
+        tp = transformation["fromtheta"](finegrid)
+        totheta = transformation["totheta"]
+        eps = 1e-6
+        dtheta = np.abs((totheta(tp + eps) - totheta(tp - eps)) / (2 * eps))
+        out["transparam"] = tp
+        out["pdf_transparam"] = pdf * dtheta
+    return out
+
+
+def compute_quantiles(marg, q=(0.025, 0.5, 0.975)):
+    """Quantiles from the interpolated cdf (aghq::compute_quantiles)."""
+    pc = compute_pdf_and_cdf(marg)
+    grid, cdf = pc["theta"], pc["cdf"]
+    out = []
+    for p in q:
+        below = np.where(cdf < p)[0]
+        out.append(grid[below.max()] if len(below) else grid[0])
+    return np.array(out)
+
+
+def summarize_marginals(fit: AGHQFit):
+    """Per-theta mean/sd/quantiles (aghq::summary.aghq moments table)."""
+    rows = []
+    mean = compute_moment(fit)
+    second = compute_moment(fit, lambda th: th ** 2)
+    sd = np.sqrt(np.maximum(second - mean ** 2, 0.0))
+    for jdim, marg in enumerate(fit.marginals):
+        qs = compute_quantiles(marg)
+        rows.append({"mean": float(np.atleast_1d(mean)[jdim]),
+                     "sd": float(np.atleast_1d(sd)[jdim]),
+                     "q2.5": float(qs[0]), "median": float(qs[1]),
+                     "q97.5": float(qs[2])})
+    return rows
