@@ -6,7 +6,10 @@ the likelihood data. `fast_iwp_from_arrays` builds this package's
 FastIWPBackend on a device from such arrays, for instance the numpy
 arrays of the JAX package's FastIWPBackend, so both packages can run the
 same model; `fast_iwp_arrays` gives the arrays of a backend built here.
-`latent_state` moves a latent state (V, tail) onto a device.
+`latent_state` moves a latent state (V, tail) onto a device: one fit's
+(dpad,), (q,) or a replicate batch's (R, dpad), (R, q).
+`replicate_responses` checks the (R, n) raw-order responses of a
+replicate fit, which both packages take as numpy.
 """
 from __future__ import annotations
 
@@ -63,9 +66,24 @@ def fast_iwp_from_arrays(arrs: dict, term=None, device="cuda"):
 
 
 def latent_state(V, tail, device="cuda"):
-    """(V, tail) as f64 tensors on `device`."""
-    return (torch.tensor(np.asarray(V, np.float64), device=device),
-            torch.tensor(np.asarray(tail, np.float64), device=device))
+    """(V, tail) as f64 tensors on `device`: (dpad,), (q,) of one fit or
+    (R, dpad), (R, q) of a replicate batch (the JAX package's batched
+    state has the same layout)."""
+    V = np.asarray(V, np.float64)
+    tail = np.asarray(tail, np.float64)
+    if V.ndim != tail.ndim or V.shape[:-1] != tail.shape[:-1]:
+        raise ValueError(f"V {V.shape} and tail {tail.shape} do not belong "
+                         "to one latent state")
+    return (torch.tensor(V, device=device), torch.tensor(tail, device=device))
+
+
+def replicate_responses(ys, be) -> np.ndarray:
+    """(R, n) f64 raw-order responses for backend `be`, checked."""
+    ys = np.asarray(ys, np.float64)
+    n = len(be.row_order)
+    if ys.ndim != 2 or ys.shape[1] != n:
+        raise ValueError(f"responses must be (R, {n}), got {ys.shape}")
+    return ys
 
 
 def _host(a):

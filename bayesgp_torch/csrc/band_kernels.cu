@@ -26,6 +26,14 @@
 //                   H^{-1} from L, the backward Takahashi recurrence).
 // K5 band_bwd_multi replaces band_kernels.py:bwd_multi_fn (L^T X = Z for
 //                   the posterior draws, one column per draw).
+// K8-K11 band_factor_batched, band_fwd_solve_batched,
+//                   band_bwd_solve_batched, band_takahashi_batched replace
+//                   bayesgp_tpu/linalg/band_batched.py:bfactor_fn, bfwd_fn,
+//                   bbwd_fn, btakahashi_fn: NR independent systems of one
+//                   shape in one launch, stored one after another
+//                   ((NR, d, bw+1) bands, (NR, d) reciprocal pivots,
+//                   (NR, d, m) right-hand sides). K8 has no tail block and
+//                   writes one half log-det per system.
 //
 // Bound. Each kernel is a prefix recurrence over the d columns with
 // O(bw^2 + bw q) work per column and right-hand side. The roofline
@@ -58,6 +66,18 @@
 // entries (K1) and a shared-memory ring for the window. K4 runs once
 // per gradient and keeps the generic form: threads across the bw
 // entries of a row of H^{-1}, two barriers a row.
+//
+// The batched kernels. The TPU packed NR systems side by side on the 128
+// lanes because one system filled 6% of a vector; here a system is a
+// thread block. Every recurrence above is a __device__ function of one
+// system's pointers; the K1-K5 kernels call it on their arguments, the
+// K8-K11 kernels give the grid a system axis (blockIdx.x for K8 and K11,
+// blockIdx.y beside the column tiles for K9 and K10) and call it at that
+// system's offset. The chain of one system is as long as before, but up
+// to 132 of them run at once, one a multiprocessor, and system r of a
+// batched kernel runs the same device code as the one-system kernel: the
+// two agree bit for bit. K9/K10 blocks have as many threads as a system
+// has right-hand sides (rounded to a warp, at most RHS_THREADS).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -125,16 +145,15 @@ __device__ void half_logdet(double* piv, double* hld, int d) {
 // their columns; warps 1.. compute the tail rows of chunk s-1 from the
 // multipliers L[j, j-t] and 1/L_jj lane 0 left in a double buffer.
 template <int BW>
-__global__ void band_factor_small(const double* __restrict__ band,
-                                  const double* __restrict__ C,
-                                  double* __restrict__ L,
-                                  double* __restrict__ rinv,
-                                  double* __restrict__ Y,
-                                  double* __restrict__ piv,
-                                  double* __restrict__ hld,
-                                  int d, int q) {
+__device__ __forceinline__ void factor_small(const double* __restrict__ band,
+                                             const double* __restrict__ C,
+                                             double* __restrict__ L,
+                                             double* __restrict__ rinv,
+                                             double* __restrict__ Y,
+                                             double* __restrict__ piv,
+                                             double* __restrict__ hld,
+                                             int d, int q, double* sm) {
     constexpr int W = BW + 1;
-    extern __shared__ double sm[];
     double* Bs = sm;                      // [STAGE][W] band rows, chunk s
     double* Ms = Bs + STAGE * W;          // [2][STAGE][BW] L[j, j-t]
     double* Rb = Ms + 2 * STAGE * BW;     // [2][STAGE] 1/L_jj
@@ -218,18 +237,41 @@ __global__ void band_factor_small(const double* __restrict__ band,
     half_logdet(piv, hld, d);
 }
 
+template <int BW>
+__global__ void band_factor_small(const double* __restrict__ band,
+                                  const double* __restrict__ C,
+                                  double* __restrict__ L,
+                                  double* __restrict__ rinv,
+                                  double* __restrict__ Y,
+                                  double* __restrict__ piv,
+                                  double* __restrict__ hld,
+                                  int d, int q) {
+    extern __shared__ double sm[];
+    factor_small<BW>(band, C, L, rinv, Y, piv, hld, d, q, sm);
+}
+
+// K8: block r factors system r; no tail (q = 0: C and Y are never read)
+template <int BW>
+__global__ void band_factor_batched_small(const double* __restrict__ bands,
+                                          double* __restrict__ L,
+                                          double* __restrict__ rinv,
+                                          double* __restrict__ piv,
+                                          double* __restrict__ hld, int d) {
+    extern __shared__ double sm[];
+    const size_t r = blockIdx.x;
+    const size_t ob = r * d * (BW + 1), od = r * d;
+    factor_small<BW>(bands + ob, nullptr, L + ob, rinv + od, nullptr,
+                     piv + od, hld + r, d, 0, sm);
+}
+
 // --------------------------------------------------- K1, generic bw --
 // Threads [0, W) compute the band entries L[j+o, j], threads [W, W+q)
 // the tail row Y[j, c]; every thread computes the pivot itself.
-__global__ void band_factor_kernel(const double* __restrict__ band,
-                                   const double* __restrict__ C,
-                                   double* __restrict__ L,
-                                   double* __restrict__ rinv,
-                                   double* __restrict__ Y,
-                                   double* __restrict__ piv,
-                                   double* __restrict__ hld,
-                                   int d, int bw, int q) {
-    extern __shared__ double sm[];
+__device__ __forceinline__ void factor_columns(
+        const double* __restrict__ band, const double* __restrict__ C,
+        double* __restrict__ L, double* __restrict__ rinv,
+        double* __restrict__ Y, double* __restrict__ piv,
+        double* __restrict__ hld, int d, int bw, int q, double* sm) {
     const int W = bw + 1;
     double* Lw = sm;                  // [W][W] ring: last W columns of L
     double* Yw = Lw + W * W;          // [W][q] ring: last W rows of Y
@@ -297,17 +339,42 @@ __global__ void band_factor_kernel(const double* __restrict__ band,
     half_logdet(piv, hld, d);
 }
 
+__global__ void band_factor_kernel(const double* __restrict__ band,
+                                   const double* __restrict__ C,
+                                   double* __restrict__ L,
+                                   double* __restrict__ rinv,
+                                   double* __restrict__ Y,
+                                   double* __restrict__ piv,
+                                   double* __restrict__ hld,
+                                   int d, int bw, int q) {
+    extern __shared__ double sm[];
+    factor_columns(band, C, L, rinv, Y, piv, hld, d, bw, q, sm);
+}
+
+__global__ void band_factor_batched_kernel(const double* __restrict__ bands,
+                                           double* __restrict__ L,
+                                           double* __restrict__ rinv,
+                                           double* __restrict__ piv,
+                                           double* __restrict__ hld,
+                                           int d, int bw) {
+    extern __shared__ double sm[];
+    const size_t r = blockIdx.x;
+    const size_t ob = r * d * (bw + 1), od = r * d;
+    factor_columns(bands + ob, nullptr, L + ob, rinv + od, nullptr,
+                   piv + od, hld + r, d, bw, 0, sm);
+}
+
 // ------------------------------------------------ K2, K3, K5, bw <= 8 --
 // One thread per right-hand-side column with its last BW solution values
 // in registers; the block stages STAGE rows of the multipliers, 1/L_jj
 // and its right-hand sides at a time.
 template <int BW>
-__global__ void band_fwd_small(const double* __restrict__ L,
-                               const double* __restrict__ rinv,
-                               const double* __restrict__ B,
-                               double* __restrict__ X, int d, int r) {
+__device__ __forceinline__ void fwd_small(const double* __restrict__ L,
+                                          const double* __restrict__ rinv,
+                                          const double* __restrict__ B,
+                                          double* __restrict__ X,
+                                          int d, int r, double* sm) {
     constexpr int W = BW + 1;
-    extern __shared__ double sm[];
     const int nt = blockDim.x;
     const int tx = threadIdx.x;
     const int c = blockIdx.x * nt + tx;
@@ -344,6 +411,15 @@ __global__ void band_fwd_small(const double* __restrict__ L,
             X[(size_t)j * r + c] = v;
         }
     }
+}
+
+template <int BW>
+__global__ void band_fwd_small(const double* __restrict__ L,
+                               const double* __restrict__ rinv,
+                               const double* __restrict__ B,
+                               double* __restrict__ X, int d, int r) {
+    extern __shared__ double sm[];
+    fwd_small<BW>(L, rinv, B, X, d, r, sm);
 }
 
 template <int BW>
@@ -408,14 +484,38 @@ __global__ void band_bwd_multi_small(const double* __restrict__ L,
     bwd_small<BW>(L, rinv, B, X, d, r, sm);
 }
 
+// K9 / K10: blockIdx.y is the system, blockIdx.x its tile of right-hand
+// sides; r right-hand sides a system
+template <int BW>
+__global__ void band_fwd_batched_small(const double* __restrict__ L,
+                                       const double* __restrict__ rinv,
+                                       const double* __restrict__ B,
+                                       double* __restrict__ X, int d, int r) {
+    extern __shared__ double sm[];
+    const size_t s = blockIdx.y;
+    const size_t ob = s * d * (BW + 1), od = s * d, ox = s * d * r;
+    fwd_small<BW>(L + ob, rinv + od, B + ox, X + ox, d, r, sm);
+}
+
+template <int BW>
+__global__ void band_bwd_batched_small(const double* __restrict__ L,
+                                       const double* __restrict__ rinv,
+                                       const double* __restrict__ B,
+                                       double* __restrict__ X, int d, int r) {
+    extern __shared__ double sm[];
+    const size_t s = blockIdx.y;
+    const size_t ob = s * d * (BW + 1), od = s * d, ox = s * d * r;
+    bwd_small<BW>(L + ob, rinv + od, B + ox, X + ox, d, r, sm);
+}
+
 // ---------------------------------------------- K2, K3, K5, generic bw --
 // As above with the window in a shared-memory ring, one strip a thread.
-__global__ void band_fwd_kernel(const double* __restrict__ L,
-                                const double* __restrict__ rinv,
-                                const double* __restrict__ B,
-                                double* __restrict__ X,
-                                int d, int bw, int r) {
-    extern __shared__ double sm[];
+__device__ __forceinline__ void fwd_columns(const double* __restrict__ L,
+                                            const double* __restrict__ rinv,
+                                            const double* __restrict__ B,
+                                            double* __restrict__ X,
+                                            int d, int bw, int r,
+                                            double* sm) {
     const int W = bw + 1;
     const int nt = blockDim.x;
     const int tx = threadIdx.x;
@@ -451,6 +551,15 @@ __global__ void band_fwd_kernel(const double* __restrict__ L,
             slot = ring_inc(slot, W);
         }
     }
+}
+
+__global__ void band_fwd_kernel(const double* __restrict__ L,
+                                const double* __restrict__ rinv,
+                                const double* __restrict__ B,
+                                double* __restrict__ X,
+                                int d, int bw, int r) {
+    extern __shared__ double sm[];
+    fwd_columns(L, rinv, B, X, d, bw, r, sm);
 }
 
 __device__ __forceinline__ void bwd_columns(const double* __restrict__ L,
@@ -513,16 +622,36 @@ __global__ void band_bwd_multi_kernel(const double* __restrict__ L,
     bwd_columns(L, rinv, B, X, d, bw, r, sm);
 }
 
+__global__ void band_fwd_batched_kernel(const double* __restrict__ L,
+                                        const double* __restrict__ rinv,
+                                        const double* __restrict__ B,
+                                        double* __restrict__ X,
+                                        int d, int bw, int r) {
+    extern __shared__ double sm[];
+    const size_t s = blockIdx.y;
+    const size_t ob = s * d * (bw + 1), od = s * d, ox = s * d * r;
+    fwd_columns(L + ob, rinv + od, B + ox, X + ox, d, bw, r, sm);
+}
+
+__global__ void band_bwd_batched_kernel(const double* __restrict__ L,
+                                        const double* __restrict__ rinv,
+                                        const double* __restrict__ B,
+                                        double* __restrict__ X,
+                                        int d, int bw, int r) {
+    extern __shared__ double sm[];
+    const size_t s = blockIdx.y;
+    const size_t ob = s * d * (bw + 1), od = s * d, ox = s * d * r;
+    bwd_columns(L + ob, rinv + od, B + ox, X + ox, d, bw, r, sm);
+}
+
 // ---------------------------------------------------------------- K4 --
 // Z[j, o] = (H^{-1})[j+o, j], by the backward recurrence
 //   Z[j, o] = -sum_t (L[j+t, j] rinv_j) S(j+t, j+o)      (o = 1..bw)
 //   Z[j, 0] = rinv_j^2 - sum_t (L[j+t, j] rinv_j) Z[j, t]
 // with S the symmetric selected inverse of rows j+1..j+bw (in the ring).
-__global__ void band_takahashi_kernel(const double* __restrict__ L,
-                                      const double* __restrict__ rinv,
-                                      double* __restrict__ Z,
-                                      int d, int bw) {
-    extern __shared__ double sm[];
+__device__ __forceinline__ void takahashi_rows(
+        const double* __restrict__ L, const double* __restrict__ rinv,
+        double* __restrict__ Z, int d, int bw, double* sm) {
     const int W = bw + 1;
     double* Zw = sm;                  // [W][W] ring: rows j..j+bw of Z
     double* Ls = Zw + W * W;          // [STAGE][W] staged rows of L
@@ -573,12 +702,47 @@ __global__ void band_takahashi_kernel(const double* __restrict__ L,
     }
 }
 
-// shared memory of the right-hand-side kernels: staged multipliers
-// (STAGE x lw), 1/L_jj, right-hand sides, and the generic kernels' ring
-size_t rhs_smem(int lw, int ring_w) {
+__global__ void band_takahashi_kernel(const double* __restrict__ L,
+                                      const double* __restrict__ rinv,
+                                      double* __restrict__ Z,
+                                      int d, int bw) {
+    extern __shared__ double sm[];
+    takahashi_rows(L, rinv, Z, d, bw, sm);
+}
+
+// K11: block r takes system r
+__global__ void band_takahashi_batched_kernel(const double* __restrict__ L,
+                                              const double* __restrict__ rinv,
+                                              double* __restrict__ Z,
+                                              int d, int bw) {
+    extern __shared__ double sm[];
+    const size_t r = blockIdx.x;
+    const size_t ob = r * d * (bw + 1);
+    takahashi_rows(L + ob, rinv + r * d, Z + ob, d, bw, sm);
+}
+
+// shared memory of the right-hand-side kernels with nt threads a block:
+// staged multipliers (STAGE x lw), 1/L_jj, right-hand sides, and the
+// generic kernels' ring
+size_t rhs_smem(int lw, int ring_w, int nt = RHS_THREADS) {
     return sizeof(double) * ((size_t)STAGE * lw + STAGE
-                             + (size_t)STAGE * RHS_THREADS
-                             + (size_t)ring_w * RHS_THREADS);
+                             + (size_t)STAGE * nt + (size_t)ring_w * nt);
+}
+
+size_t factor_small_smem(int bw) {
+    return sizeof(double) *
+        ((size_t)STAGE * (bw + 1) + 2 * (size_t)STAGE * bw + 2 * STAGE);
+}
+
+size_t factor_smem(int bw, int q) {
+    const int W = bw + 1;
+    return sizeof(double) *
+        ((size_t)W * W + (size_t)W * q + (size_t)STAGE * (W + q));
+}
+
+size_t takahashi_smem(int bw) {
+    const int W = bw + 1;
+    return sizeof(double) * ((size_t)W * W + (size_t)STAGE * W + STAGE);
 }
 
 template <int BW>
@@ -586,11 +750,19 @@ cudaError_t launch_factor_small(const double* band, const double* C,
                                 double* L, double* rinv, double* Y,
                                 double* piv, double* hld, int d, int q,
                                 cudaStream_t st) {
-    const size_t smem = sizeof(double) *
-        ((size_t)STAGE * (BW + 1) + 2 * (size_t)STAGE * BW + 2 * STAGE);
     const int nt = 32 + (q > 0 ? round_threads(q) : 0);
-    band_factor_small<BW><<<1, nt, smem, st>>>(band, C, L, rinv, Y, piv,
-                                               hld, d, q);
+    band_factor_small<BW><<<1, nt, factor_small_smem(BW), st>>>(
+        band, C, L, rinv, Y, piv, hld, d, q);
+    return cudaGetLastError();
+}
+
+template <int BW>
+cudaError_t launch_factor_batched_small(const double* bands, double* L,
+                                        double* rinv, double* piv,
+                                        double* hld, int nsys, int d,
+                                        cudaStream_t st) {
+    band_factor_batched_small<BW><<<nsys, 32, factor_small_smem(BW), st>>>(
+        bands, L, rinv, piv, hld, d);
     return cudaGetLastError();
 }
 
@@ -613,12 +785,40 @@ cudaError_t launch_rhs_small(int kind, const double* L, const double* rinv,
     return cudaGetLastError();
 }
 
+// threads of a K9/K10 block: one a right-hand side, whole warps
+int batched_rhs_threads(int r) {
+    return r < RHS_THREADS ? round_threads(r) : RHS_THREADS;
+}
+
+template <int BW>
+cudaError_t launch_rhs_batched_small(int kind, const double* L,
+                                     const double* rinv, const double* B,
+                                     double* X, int nsys, int d, int r,
+                                     cudaStream_t st) {
+    const int nt = batched_rhs_threads(r);
+    const dim3 grid((r + nt - 1) / nt, nsys);
+    if (kind == 0) {
+        band_fwd_batched_small<BW><<<grid, nt, rhs_smem(BW, 0, nt), st>>>(
+            L, rinv, B, X, d, r);
+    } else {
+        band_bwd_batched_small<BW>
+            <<<grid, nt, rhs_smem(BW + 1, 0, nt), st>>>(L, rinv, B, X, d, r);
+    }
+    return cudaGetLastError();
+}
+
 using RhsLaunch = cudaError_t (*)(int, const double*, const double*,
                                   const double*, double*, int, int,
                                   cudaStream_t);
 using FactorLaunch = cudaError_t (*)(const double*, const double*, double*,
                                      double*, double*, double*, double*,
                                      int, int, cudaStream_t);
+using RhsBatchedLaunch = cudaError_t (*)(int, const double*, const double*,
+                                         const double*, double*, int, int,
+                                         int, cudaStream_t);
+using FactorBatchedLaunch = cudaError_t (*)(const double*, double*, double*,
+                                            double*, double*, int, int,
+                                            cudaStream_t);
 // the register-window instantiations, indexed by bandwidth
 const RhsLaunch kRhsSmall[SMALL_BW + 1] = {
     nullptr, launch_rhs_small<1>, launch_rhs_small<2>, launch_rhs_small<3>,
@@ -628,6 +828,17 @@ const FactorLaunch kFactorSmall[SMALL_BW + 1] = {
     nullptr, launch_factor_small<1>, launch_factor_small<2>,
     launch_factor_small<3>, launch_factor_small<4>, launch_factor_small<5>,
     launch_factor_small<6>, launch_factor_small<7>, launch_factor_small<8>};
+
+const RhsBatchedLaunch kRhsBatchedSmall[SMALL_BW + 1] = {
+    nullptr, launch_rhs_batched_small<1>, launch_rhs_batched_small<2>,
+    launch_rhs_batched_small<3>, launch_rhs_batched_small<4>,
+    launch_rhs_batched_small<5>, launch_rhs_batched_small<6>,
+    launch_rhs_batched_small<7>, launch_rhs_batched_small<8>};
+const FactorBatchedLaunch kFactorBatchedSmall[SMALL_BW + 1] = {
+    nullptr, launch_factor_batched_small<1>, launch_factor_batched_small<2>,
+    launch_factor_batched_small<3>, launch_factor_batched_small<4>,
+    launch_factor_batched_small<5>, launch_factor_batched_small<6>,
+    launch_factor_batched_small<7>, launch_factor_batched_small<8>};
 
 cudaError_t launch_rhs(int kind, const double* L, const double* rinv,
                        const double* B, double* X, int d, int bw, int r,
@@ -656,6 +867,29 @@ cudaError_t launch_rhs(int kind, const double* L, const double* rinv,
     return cudaGetLastError();
 }
 
+cudaError_t launch_rhs_batched(int kind, const double* L, const double* rinv,
+                               const double* B, double* X, int nsys, int d,
+                               int bw, int r, cudaStream_t st) {
+    if (bw >= 1 && bw <= SMALL_BW)
+        return kRhsBatchedSmall[bw](kind, L, rinv, B, X, nsys, d, r, st);
+    const int nt = batched_rhs_threads(r);
+    const dim3 grid((r + nt - 1) / nt, nsys);
+    const size_t smem = rhs_smem(kind == 0 ? bw : bw + 1, bw + 1, nt);
+    cudaError_t e;
+    if (kind == 0) {
+        e = allow_smem(band_fwd_batched_kernel, smem);
+        if (e != cudaSuccess) return e;
+        band_fwd_batched_kernel<<<grid, nt, smem, st>>>(L, rinv, B, X, d, bw,
+                                                        r);
+    } else {
+        e = allow_smem(band_bwd_batched_kernel, smem);
+        if (e != cudaSuccess) return e;
+        band_bwd_batched_kernel<<<grid, nt, smem, st>>>(L, rinv, B, X, d, bw,
+                                                        r);
+    }
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 // ------------------------------------------------------ C interface --
@@ -668,12 +902,10 @@ int bgt_band_factor(const double* band, const double* C, double* L,
     if (bw >= 1 && bw <= SMALL_BW && q <= MAX_TAIL_SMALL)
         return (int)kFactorSmall[bw](band, C, L, rinv, Y, piv, hld, d, q,
                                      st);
-    const int W = bw + 1;
-    const size_t smem = sizeof(double) *
-        ((size_t)W * W + (size_t)W * q + (size_t)STAGE * (W + q));
+    const size_t smem = factor_smem(bw, q);
     cudaError_t e = allow_smem(band_factor_kernel, smem);
     if (e != cudaSuccess) return (int)e;
-    band_factor_kernel<<<1, round_threads(W + q), smem, st>>>(
+    band_factor_kernel<<<1, round_threads(bw + 1 + q), smem, st>>>(
         band, C, L, rinv, Y, piv, hld, d, bw, q);
     return (int)cudaGetLastError();
 }
@@ -695,13 +927,55 @@ int bgt_band_bwd_multi(const double* L, const double* rinv, const double* B,
 
 int bgt_band_takahashi(const double* L, const double* rinv, double* Z,
                        int d, int bw, void* stream) {
-    const int W = bw + 1;
-    const size_t smem = sizeof(double) *
-        ((size_t)W * W + (size_t)STAGE * W + STAGE);
+    const size_t smem = takahashi_smem(bw);
     cudaError_t e = allow_smem(band_takahashi_kernel, smem);
     if (e != cudaSuccess) return (int)e;
     band_takahashi_kernel<<<1, round_threads(bw > 1 ? bw : 1), smem,
                             (cudaStream_t)stream>>>(L, rinv, Z, d, bw);
+    return (int)cudaGetLastError();
+}
+
+// K8-K11: nsys systems of one shape, stored one after another; hld (and
+// the scratch piv) hold one entry (one row) per system
+
+int bgt_band_factor_batched(const double* bands, double* L, double* rinv,
+                            double* piv, double* hld, int nsys, int d,
+                            int bw, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (bw >= 1 && bw <= SMALL_BW)
+        return (int)kFactorBatchedSmall[bw](bands, L, rinv, piv, hld, nsys,
+                                            d, st);
+    const size_t smem = factor_smem(bw, 0);
+    cudaError_t e = allow_smem(band_factor_batched_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    band_factor_batched_kernel<<<nsys, round_threads(bw + 1), smem, st>>>(
+        bands, L, rinv, piv, hld, d, bw);
+    return (int)cudaGetLastError();
+}
+
+int bgt_band_fwd_solve_batched(const double* L, const double* rinv,
+                               const double* B, double* X, int nsys, int d,
+                               int bw, int r, void* stream) {
+    return (int)launch_rhs_batched(0, L, rinv, B, X, nsys, d, bw, r,
+                                   (cudaStream_t)stream);
+}
+
+int bgt_band_bwd_solve_batched(const double* L, const double* rinv,
+                               const double* B, double* X, int nsys, int d,
+                               int bw, int r, void* stream) {
+    return (int)launch_rhs_batched(1, L, rinv, B, X, nsys, d, bw, r,
+                                   (cudaStream_t)stream);
+}
+
+int bgt_band_takahashi_batched(const double* L, const double* rinv,
+                               double* Z, int nsys, int d, int bw,
+                               void* stream) {
+    const size_t smem = takahashi_smem(bw);
+    cudaError_t e = allow_smem(band_takahashi_batched_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    band_takahashi_batched_kernel<<<nsys, round_threads(bw > 1 ? bw : 1),
+                                    smem, (cudaStream_t)stream>>>(L, rinv, Z,
+                                                                  d, bw);
     return (int)cudaGetLastError();
 }
 

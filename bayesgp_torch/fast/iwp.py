@@ -96,6 +96,12 @@ class FastIWPBackend:
         self._pad_eye = torch.zeros((self.dpad, self.p + 1), dtype=DTYPE,
                                     device=dev)
         self._pad_eye[self.d:, 0] = 1.0
+        # segment bounds as positions in the rows' inclusive prefix sum:
+        # the sum of rows [lo, hi) is cs[hi - 1] - cs[lo - 1], with
+        # cs[-1] = 0 (the mask)
+        self._seg_prev = (torch.clamp(self.seg_hi - 1, min=0),
+                          torch.clamp(self.seg_lo - 1, min=0))
+        self._seg_some = (self.seg_hi > 0, self.seg_lo > 0)
         self._logPdet0 = float(np.asarray(self.md.logPdet)[0])
         self._phi = (-torch.log(torch.as_tensor(self.md.alpha, dtype=DTYPE))
                      / torch.as_tensor(self.md.u, dtype=DTYPE)).to(dev)
@@ -103,6 +109,15 @@ class FastIWPBackend:
     @property
     def device(self):
         return self.valsT.device
+
+    def with_y(self, y):
+        """Backend for another response on the same design (replicate
+        fits). `y` is in raw data order; it is permuted to the internal
+        row sort."""
+        y = torch.as_tensor(np.asarray(y, np.float64)[self.row_order],
+                            dtype=DTYPE, device=self.device)
+        return dataclasses.replace(
+            self, md=dataclasses.replace(self.md, y=y))
 
     @property
     def n_theta(self):
@@ -460,8 +475,10 @@ class _SegSum(torch.autograd.Function):
     def forward(ctx, rows, be):
         ctx.be = be
         cs = torch.cumsum(rows, dim=-1)
-        pre = torch.cat([torch.zeros_like(cs[..., :1]), cs], dim=-1)
-        return pre[..., be.seg_hi] - pre[..., be.seg_lo]
+        zero = cs.new_zeros(())
+        (hi, lo), (some_hi, some_lo) = be._seg_prev, be._seg_some
+        return (torch.where(some_hi, cs[..., hi], zero)
+                - torch.where(some_lo, cs[..., lo], zero))
 
     @staticmethod
     def backward(ctx, ct):

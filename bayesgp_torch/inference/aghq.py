@@ -153,6 +153,106 @@ def optimize_1d(backend, theta0: float = 0.0, tol: float = TOL,
     return th, H, state
 
 
+def fit_1d_batched(backend, k: int, tol: float = TOL,
+                   max_iter: int = MAX_ITER):
+    """R one-hyperparameter AGHQ fits in lock step on a replicate backend
+    (fast/batched.BatchedFastIWP): (mode (R,), H (R,), nodes (R, k),
+    nlls (R, k)) as tensors on the backend's device.
+
+    The (R,)-vector twin of optimize_1d and the node evaluations of
+    aghq_fit, after the JAX package's batched single-program fit: every
+    optimizer quantity is an (R,) tensor and every Laplace evaluation
+    factors all replicates in one pass. It evaluates at theta = 0 before
+    the loop (optimize_1d spends its first iteration on that), then applies
+    the same secant-Newton, EM jump, trust cap and accept guard per
+    replicate. The loop runs until every replicate is done; a replicate
+    that is done is frozen -- it is still evaluated, in lock step, but
+    never moves again. Then the central-difference pair at mode +/- H_FD
+    and the k nodes, the negative and the positive side each as a chain
+    warm-started in order of |z| from the mode's latent state. One
+    device-to-host read per outer iteration."""
+    dev = backend.device
+    R = backend.R
+    em_dim = float(backend.em_dims[0])
+    em_phi = float(-math.log(float(np.asarray(backend.md.alpha)[0]))
+                   / float(np.asarray(backend.md.u)[0]))
+    z1, _ = ghe_rule(k)
+
+    def vec(x):
+        return torch.full((R,), float(x), dtype=torch.float64, device=dev)
+
+    def vg(th, state):
+        return backend.value_and_grad(th, state)
+
+    th = vec(0.0)
+    f, g, state = vg(th, backend.init_state())
+    h_est, cap, last_dir, th_root = vec(0.0), vec(2.0), vec(0.0), vec(0.0)
+    final = torch.zeros(R, dtype=torch.bool, device=dev)
+    done = g.abs() < tol
+    for _ in range(max_iter):
+        if bool(done.all()):
+            break
+        h = torch.where(h_est > 0, h_est, torch.clamp(g.abs(), min=1.0))
+        step = torch.maximum(torch.minimum(g / h, cap), -cap)
+        hp = 0.5 - 0.5 * em_phi * torch.exp(-0.5 * th)
+        A = 2.0 * (g - hp) + em_dim
+        em = torch.clamp(math.log(em_dim)
+                         - torch.log(torch.clamp(A, min=1e-4 * em_dim)),
+                         -8.0, 8.0)
+        # far from the mode and not recovering from a rejection
+        use_em = (em.abs() > 0.5) & (cap >= 2.0)
+        step = torch.where(use_em, -em, step)
+        full = ~use_em & (step.abs() >= cap * 0.999)
+        same_dir = torch.sign(step) == last_dir
+        cap2 = torch.where(full & same_dir, torch.clamp(cap * 2.0, max=16.0),
+                           torch.where(full, cap, vec(2.0)))
+        ldir2 = torch.where(full, torch.sign(step), vec(0.0))
+        cand = torch.where(final, th_root, th - step)
+        f_t, g_t, st_t = vg(cand, state)
+        guard = torch.clamp(1e3 * F_NOISE * (1.0 + f.abs()), min=1e-8)
+        ok = torch.isfinite(f_t) & (f_t <= f + guard)
+        # done replicates are frozen; the final secant evaluation is
+        # accepted unless it is not finite
+        acc = (ok | (final & torch.isfinite(f_t))) & ~done
+        dth = cand - th
+        h_new = torch.where(acc & (dth.abs() > 1e-12), (g_t - g) / dth, h_est)
+        h_new = torch.where(torch.isfinite(h_new) & (h_new > 0), h_new,
+                            h_est)
+        flip = (acc & ~final & (torch.sign(g_t) != torch.sign(g))
+                & (dth.abs() < 0.05 * (1.0 + cand.abs())))
+        denom = g_t - g
+        th_root = torch.where(denom.abs() > 1e-300,
+                              cand - g_t * dth / denom, cand)
+        th = torch.where(acc, cand, th)
+        f = torch.where(acc, f_t, f)
+        g = torch.where(acc, g_t, g)
+        state = tuple(torch.where(acc[:, None], new, old)
+                      for new, old in zip(st_t, state))
+        small = (h_new > 0) & ((g / torch.clamp(h_new, min=1e-12)).abs()
+                               < 1e-4)
+        now_done = final | (g.abs() < tol) | (~flip & acc & small)
+        rej = ~acc & ~done
+        cap = torch.where(acc, cap2, torch.where(rej, cap * 0.25, cap))
+        last_dir = torch.where(acc, ldir2, last_dir)
+        final, h_est = flip, h_new
+        done = done | now_done
+    mode = th
+    g_plus = vg(mode + H_FD, state)[1]
+    g_minus = vg(mode - H_FD, state)[1]
+    H = (g_plus - g_minus) / (2 * H_FD)
+    Lad = torch.rsqrt(torch.clamp(H.abs(), min=1e-8))
+    nodes = mode[:, None] + Lad[:, None] * torch.as_tensor(
+        z1, dtype=torch.float64, device=dev)                   # (R, k)
+    order = [int(j) for j in np.argsort(np.abs(z1))]
+    nlls = [None] * k
+    for side in ([j for j in order if z1[j] < 0],
+                 [j for j in order if z1[j] >= 0]):
+        warm = state
+        for j in side:
+            nlls[j], warm, _ = backend.laplace_eval_full(nodes[:, j], warm)
+    return mode, H, nodes, torch.stack(nlls, dim=1)
+
+
 def aghq_fit(backend, k: int = 4, theta0=None) -> AGHQFit:
     """Full s=1 AGHQ pipeline: optimize, adapt, evaluate the k nodes
     (each warm-started from the mode's latent state) and form the

@@ -33,22 +33,25 @@ SICK_INV = 1e12
 
 def _chol_ok(S):
     L, info = torch.linalg.cholesky_ex(S)
-    return (info == 0) & torch.isfinite(torch.diagonal(L)).all()
+    return (info == 0) & torch.isfinite(
+        torch.diagonal(L, dim1=-2, dim2=-1)).all(-1)
 
 
 def chol_jittered(S):
-    """Lower Cholesky with failure escalation: plain -> + jitter * scale
-    * I -> a diagonal surrogate that always factors. A healthy matrix
-    factors exactly as it is. Branchless (no host synchronisation)."""
-    q = S.shape[0]
+    """Lower Cholesky of (..., q, q) with failure escalation, matrix by
+    matrix: plain -> + jitter * scale * I -> a diagonal surrogate that
+    always factors. A healthy matrix factors exactly as it is. Branchless
+    (no host synchronisation)."""
+    q = S.shape[-1]
     eye = torch.eye(q, dtype=S.dtype, device=S.device)
     Ssg = S.detach()
-    scale = torch.clamp(torch.diagonal(Ssg).abs().mean(), min=1e-30)
+    diag = torch.diagonal(S, dim1=-2, dim2=-1)
+    scale = torch.clamp(diag.detach().abs().mean(-1), min=1e-30)
     jit = torch.where(_chol_ok(Ssg), torch.zeros_like(scale),
-                      CHOL_JITTER * scale)
-    ok1 = _chol_ok(Ssg + jit * eye)
-    dsafe = torch.maximum(torch.diagonal(S).abs(), 1e-8 * scale)
-    Sfin = torch.where(ok1, S + jit * eye, eye * dsafe[None, :])
+                      CHOL_JITTER * scale)[..., None, None]
+    ok1 = _chol_ok(Ssg + jit * eye)[..., None, None]
+    dsafe = torch.maximum(diag.abs(), 1e-8 * scale[..., None])
+    Sfin = torch.where(ok1, S + jit * eye, eye * dsafe[..., None, :])
     return torch.linalg.cholesky_ex(Sfin)[0]
 
 

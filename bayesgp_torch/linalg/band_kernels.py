@@ -21,7 +21,8 @@ over columns, vectorized over the band entries and right-hand sides);
 on a CUDA device it launches the hand-written kernel in
 csrc/band_kernels.cu, built with nvcc for sm_90a into _build/ at first
 use and bound through ctypes, and counts the launch in `launches`.
-There is no fallback from one to the other.
+There is no fallback from one to the other. The same library holds the
+batched kernels K8-K11, whose wrappers are in band_batched.py.
 
 The factor keeps the modified-Cholesky guards of the JAX package's K1:
 a pivot below 1e-12 becomes max(|pivot|, 1e-12), |L| is capped at 1e3
@@ -109,9 +110,18 @@ def _library():
                      "bgt_band_bwd_multi"):
             getattr(lib, name).argtypes = [P, P, P, P, I, I, I, P]
         lib.bgt_band_takahashi.argtypes = [P, P, P, I, I, P]
+        # the batched entry points (wrappers in band_batched.py)
+        lib.bgt_band_factor_batched.argtypes = [P, P, P, P, P, I, I, I, P]
+        for name in ("bgt_band_fwd_solve_batched",
+                     "bgt_band_bwd_solve_batched"):
+            getattr(lib, name).argtypes = [P, P, P, P, I, I, I, I, P]
+        lib.bgt_band_takahashi_batched.argtypes = [P, P, P, I, I, I, P]
         for name in ("bgt_band_factor", "bgt_band_fwd_solve",
                      "bgt_band_bwd_solve", "bgt_band_bwd_multi",
-                     "bgt_band_takahashi"):
+                     "bgt_band_takahashi", "bgt_band_factor_batched",
+                     "bgt_band_fwd_solve_batched",
+                     "bgt_band_bwd_solve_batched",
+                     "bgt_band_takahashi_batched"):
             getattr(lib, name).restype = I
         _lib = lib
     return _lib
@@ -149,11 +159,12 @@ def _stream(t):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _launch(name, fn, *args):
+def _launch(name, fn, *args, counts=launches):
+    """Call a C entry point, raise if the launch was refused, count it."""
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
-    launches[name] += 1
+    counts[name] += 1
 
 
 def _check_factor(L, rinv):

@@ -19,7 +19,10 @@ FORBIDDEN = re.compile(
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, bayesgp_torch, bayesgp_torch.convert; "
+    code = ("import sys, bayesgp_torch, bayesgp_torch.convert, "
+            "bayesgp_torch.parallel.replicates, bayesgp_torch.fast.batched, "
+            "bayesgp_torch.linalg.band_batched, "
+            "bayesgp_torch.linalg.band_arrow_batched; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'bayesgp_tpu')]; "
             "assert not bad, bad")
