@@ -2,9 +2,10 @@
 
 Accepts a formula string (the reference's `f()` vocabulary) or pre-built
 terms, assembles the model, runs the AGHQ fit on the banded single-IWP
-backend, draws M posterior samples and returns a FitResult with the
-reference's sample-index partitions. Routes not ported yet raise
-NotImplementedError naming the ROADMAP item that ports them.
+backend or the scattered-IID backend, draws M posterior samples and
+returns a FitResult with the reference's sample-index partitions.
+Routes not ported yet raise NotImplementedError naming the ROADMAP item
+that ports them.
 """
 from __future__ import annotations
 
@@ -197,16 +198,21 @@ def _unported(route, item):
         f"bayesgp_torch yet (ROADMAP Queue 1 item {item})")
 
 
-def _iwp_backend(asm, device):
-    """The banded single-IWP backend of an assembled model, or raise
+def _backend(asm, engine, device):
+    """The backend of an assembled model: the banded single-IWP backend,
+    or with engine='scatter_iid' the diagonal-first IID backend; raise
     for the routes not ported yet."""
     from .fast.iwp import build_fast_iwp
     instances, md = asm["instances"], asm["md"]
     if not asm["use_banded"]:
         raise _unported("the dense backend (aghq.DenseBackend)", 4)
+    if engine == "scatter_iid":
+        from .fast.scatter_iid import build_scatter_iid
+        return build_scatter_iid(instances, md, asm["design_mat_fixed"],
+                                 asm["bf_prec"], asm["bf_mean"],
+                                 device=device)
     if not (len(instances) == 1 and instances[0].kind == "IWP"):
-        raise _unported("the multi-term banded backend (BandedBackend) or "
-                        "scatter_iid", "6 and 7")
+        raise _unported("the multi-term banded backend (BandedBackend)", 6)
     if md.n_theta != 1:
         raise _unported("an AGHQ fit over more than one hyperparameter", 6)
     inst = instances[0]
@@ -231,9 +237,13 @@ def model_fit(formula=None, data=None, method: str = "aghq",
     """Fit a Bayesian hierarchical GP model with AGHQ.
 
     Either pass `formula` (string) + `data`, or `response=`/`fixed=`/
-    `terms=` explicitly. Ported route: one IWP smooth with fixed effects
-    and an elementwise family with no noise hyperparameter (Poisson,
-    Binomial) on the banded engine ('banded', or 'auto' at scale).
+    `terms=` explicitly. Ported routes, for an elementwise family with no
+    noise hyperparameter (Poisson, Binomial): one IWP smooth with fixed
+    effects on the banded engine ('banded', or 'auto' at scale), and one
+    IWP smooth plus one IID term with fixed effects on
+    engine='scatter_iid' (two hyperparameters). 'auto' does not pick
+    scatter_iid: the JAX package tries the multi-term banded engine
+    first there, which is not ported yet.
 
     device: where the fit runs, "cuda" by default; a missing card
     raises rather than falling back. The posterior draws come from a
@@ -254,7 +264,7 @@ def model_fit(formula=None, data=None, method: str = "aghq",
     instances, md = asm["instances"], asm["md"]
     fixed_names = asm["fixed_names"]
 
-    backend = _iwp_backend(asm, dev)
+    backend = _backend(asm, engine, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     mod = aghq_mod.aghq_fit(backend, k=aghq_k, theta0=theta0)

@@ -8,15 +8,20 @@ arrays of the JAX package's FastIWPBackend, so both packages can run the
 same model; `fast_iwp_arrays` gives the arrays of a backend built here.
 `latent_state` moves a latent state (V, tail) onto a device: one fit's
 (dpad,), (q,) or a replicate batch's (R, dpad), (R, q).
+A scattered-IID backend is such a core plus level codes and the IID
+term's constants: `scatter_iid_arrays` / `scatter_iid_from_arrays` carry
+it, and `latent_state_iid` its three-part state (V, u, tail).
 `replicate_responses` checks the (R, n) raw-order responses of a
 replicate fit, which both packages take as numpy.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from .fast import iwp
+from .fast import iwp, scatter_iid
 from .model.build import ModelData
 
 # backend fields carried as arrays (FastIWPBackend of either package)
@@ -63,6 +68,37 @@ def fast_iwp_from_arrays(arrs: dict, term=None, device="cuda"):
                            {f: arrs[f] for f in ARRAY_FIELDS},
                            float(arrs["logdetT"]), arrs["row_order"],
                            device)
+
+
+def scatter_iid_arrays(be) -> dict:
+    """Host arrays of a ScatterIIDBackend: its core's (fast_iwp_arrays),
+    the level codes in the core's row order, and the IID term's
+    constants."""
+    md = be.md
+    return dict(core=fast_iwp_arrays(be.core), codes=_host(be.codes),
+                q_iid=int(be.q_iid), logPdet_iid=float(be.logPdet_iid),
+                u=np.asarray(md.u, np.float64),
+                alpha=np.asarray(md.alpha, np.float64),
+                d_sizes=tuple(int(x) for x in md.d_sizes))
+
+
+def scatter_iid_from_arrays(arrs: dict, term=None, device="cuda"):
+    """ScatterIIDBackend on `device` from the dict scatter_iid_arrays
+    returns (or the same fields read off the JAX package's backend).
+    `term`: the IWP TermDesign."""
+    core = fast_iwp_from_arrays(arrs["core"], term=term, device=device)
+    md = dataclasses.replace(
+        core.md, u=np.asarray(arrs["u"], np.float64),
+        alpha=np.asarray(arrs["alpha"], np.float64),
+        d_sizes=tuple(arrs["d_sizes"]))
+    return scatter_iid.from_core(core, md, arrs["codes"], arrs["q_iid"],
+                                 logPdet_iid=arrs["logPdet_iid"])
+
+
+def latent_state_iid(V, u, tail, device="cuda"):
+    """(V, u, tail) of a scattered-IID model as f64 tensors on `device`."""
+    return tuple(torch.tensor(np.asarray(a, np.float64), device=device)
+                 for a in (V, u, tail))
 
 
 def latent_state(V, tail, device="cuda"):

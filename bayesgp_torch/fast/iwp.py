@@ -183,6 +183,13 @@ class FastIWPBackend:
         corr = torch.exp(theta[0]) * self.PZ0
         return C - F.pad(corr, (0, 0, 0, self.dpad - self.d))
 
+    def tail_gram(self, wts, theta):
+        """Tail block XFp^T diag(wts) XFp + e^theta Z0' P_V Z0 + diag(prior)
+        of the Hessian -> (q, q)."""
+        return ((self.XFpT * wts) @ self.XFpT.T
+                + torch.exp(theta[0]) * self.Z0PZ0
+                + torch.diag(self.prior_diag_tail))
+
     # -- prior ------------------------------------------------------------
     def prior_quad_V(self, V):
         """V^T P_V V over the band."""
@@ -240,7 +247,12 @@ class FastIWPBackend:
     def grad_W(self, Vp, tail, theta, eta=None):
         """Gradient of neg_log_post in primed coordinates."""
         e = self.eta(Vp, tail) if eta is None else eta
-        r = families.eta_residual(e, self.md, theta)
+        return self.grad_parts(Vp, tail, theta,
+                               families.eta_residual(e, self.md, theta))
+
+    def grad_parts(self, Vp, tail, theta, r):
+        """grad_W given the likelihood residual r = d(-ll)/d eta, which a
+        model with more latent terms computes on its own eta."""
         lam = torch.exp(theta[0])
         Vd = Vp[:self.d]
         pv = self._applyP(Vd)
@@ -263,9 +275,7 @@ class FastIWPBackend:
         band = self.band_H(wts, theta)
         C = self.C_block(wts, theta)
         if self.q:
-            Hd = ((self.XFpT * wts) @ self.XFpT.T
-                  + torch.exp(theta[0]) * self.Z0PZ0
-                  + torch.diag(self.prior_diag_tail))
+            Hd = self.tail_gram(wts, theta)
             sd = torch.rsqrt(torch.diagonal(Hd))
             Hd = Hd * sd[:, None] * sd[None, :]
         else:
@@ -442,6 +452,10 @@ class FastIWPBackend:
         return val.detach(), g, st
 
     # -- posterior draws -------------------------------------------------
+    def noise_rows(self):
+        """Rows of the standard normal noise `sample` takes, in order."""
+        return (self.dpad, self.q)
+
     @torch.no_grad()
     def sample(self, states, idx, zb, zd):
         """(w_ref, M) mixture draws in reference coordinates [U = T V |

@@ -1,12 +1,15 @@
-"""Adaptive Gauss-Hermite quadrature over one hyperparameter theta.
+"""Adaptive Gauss-Hermite quadrature over the hyperparameters theta.
 
 The counterpart of the `aghq` R package machinery (aghq::
 marginal_laplace_tmb, k = 4 by default): find the mode of the Laplace
 marginal nll(theta), adapt a Gauss-Hermite rule with the mode and the
 outer curvature, and form the log normalizing constant and the theta
-marginal. The fit is a host loop over warm-started Laplace evaluations
-of the backend (fast/iwp.FastIWPBackend); each evaluation runs its
-linear algebra on the backend's device.
+marginals. The fit is a host loop over warm-started Laplace evaluations
+of the backend (fast/iwp.FastIWPBackend for one theta,
+fast/scatter_iid.ScatterIIDBackend for two); each evaluation runs its
+linear algebra on the backend's device. One theta takes the secant-Newton
+of optimize_1d; more take the gradient-only BFGS of optimize_theta, the
+JAX package's host path for heavy evaluations.
 
 Conventions match aghq/mvQuad 'GHe': nodes are probabilists' Hermite
 roots; weights integrate f against Lebesgue measure for f ~ poly x
@@ -65,7 +68,7 @@ class AGHQFit:
     logw: np.ndarray              # (J,) adapted log weights (incl. det L)
     lognll: np.ndarray            # (J,) laplace nll at nodes
     lognormconst: float
-    states: Any                   # per-node (V, tail, factor)
+    states: Any                   # per-node latent state and factor
     k: int
     backend: Any = None
     marginals: list = field(default_factory=list)  # per-dim (theta, logpdf)
@@ -253,14 +256,101 @@ def fit_1d_batched(backend, k: int, tol: float = TOL,
     return mode, H, nodes, torch.stack(nlls, dim=1)
 
 
+def optimize_theta(backend, s: int, theta0=None, tol: float = TOL,
+                   max_iter: int = 100):
+    """(mode, H, nll at the mode, latent state there) for s > 1
+    hyperparameters: gradient-only BFGS on the implicit-function gradient
+    (the reference's optim(method="BFGS")), each evaluation warm-started
+    from the last accepted latent state, backtracking from a unit step
+    under a 1e-12 relative acceptance margin, stopping on a small
+    gradient, a non-descent direction, a failed line search or two
+    consecutive steps within the F_NOISE floor. Then the outer Hessian
+    by central differences of the gradient (backend.hess)."""
+    theta = np.zeros(s) if theta0 is None else np.asarray(theta0, np.float64)
+
+    def vg(th, state):
+        val, g, st = backend.value_and_grad(th, state)
+        return float(val), g.cpu().numpy().astype(np.float64), st
+
+    f, g, state = vg(theta, backend.init_state())
+    Hinv = np.eye(s) / max(float(np.abs(g).max()), 1.0)
+    stall = 0
+    for _ in range(max_iter):
+        gmax = float(np.abs(g).max())
+        if gmax < tol:
+            break
+        step = Hinv @ g
+        dec = float(np.dot(step, g))
+        if not np.isfinite(dec) or dec <= 0:
+            # the update lost positive-definiteness: restart the curvature
+            Hinv = np.eye(s) / max(gmax, 1.0)
+            step = Hinv @ g
+            dec = float(np.dot(step, g))
+        if dec < 1e-13 * (1.0 + abs(f)):
+            break
+        alpha, accepted = 1.0, False
+        for _ in range(25):
+            cand = theta - alpha * step
+            f_try, g_try, st_try = vg(cand, state)
+            if np.isfinite(f_try) and f_try <= f + 1e-12 * (1.0 + abs(f)):
+                improved = (f - f_try) > F_NOISE * (1.0 + abs(f))
+                sk, yk = -alpha * step, g_try - g
+                sy = float(np.dot(sk, yk))
+                if sy > 1e-12 * float(np.linalg.norm(sk) * np.linalg.norm(yk)
+                                      + 1e-300):
+                    # BFGS inverse update (Sherman-Morrison form)
+                    rho = 1.0 / sy
+                    V = np.eye(s) - rho * np.outer(sk, yk)
+                    Hinv = V @ Hinv @ V.T + rho * np.outer(sk, sk)
+                theta, f, g, state = cand, f_try, g_try, st_try
+                accepted = True
+                break
+            alpha *= 0.5
+        if not accepted:
+            break
+        stall = 0 if improved else stall + 1
+        if stall >= 2:
+            break
+    return theta, backend.hess(theta, state), f, state
+
+
+def _adapt(H):
+    """Lower Cholesky factor of the adapted covariance H^{-1}, clipped to
+    positive definite when the outer Hessian is not."""
+    cov = np.linalg.inv(H)
+    cov = 0.5 * (cov + cov.T)
+    try:
+        return np.linalg.cholesky(cov)
+    except np.linalg.LinAlgError:
+        evals, evecs = np.linalg.eigh(cov)
+        evals = np.clip(np.abs(evals),
+                        1e-8 * max(np.abs(evals).max(), 1e-8), None)
+        return np.linalg.cholesky((evecs * evals) @ evecs.T)
+
+
+def _aghq_fit_nd(backend, s: int, k: int, theta0) -> AGHQFit:
+    """The s > 1 host path: optimize, adapt (PD clip), evaluate the k^s
+    product-grid nodes from the mode's latent state, then each
+    marginal's re-adapted grid."""
+    mode, H, _, warm = optimize_theta(backend, s, theta0=theta0)
+    L = _adapt(H)
+    z, logw_base = product_grid(k, s)
+    nodes = mode[None, :] + z @ L.T
+    logw = logw_base + np.log(np.diag(L)).sum()
+    nlls, states = backend.node_eval(nodes, warm)
+    fit = AGHQFit(mode=mode, hessian=H, L=L, nodes=nodes, logw=logw,
+                  lognll=nlls, lognormconst=_logsumexp_np(-nlls + logw),
+                  states=states, k=k, backend=backend)
+    fit.marginals = [marginal_posterior(fit, j, warm=warm) for j in range(s)]
+    return fit
+
+
 def aghq_fit(backend, k: int = 4, theta0=None) -> AGHQFit:
-    """Full s=1 AGHQ pipeline: optimize, adapt, evaluate the k nodes
-    (each warm-started from the mode's latent state) and form the
-    marginal. The posterior draws are sampling.sample_marginal's."""
-    if backend.n_theta != 1:
-        raise NotImplementedError(
-            "AGHQ over more than one hyperparameter is not ported yet "
-            "(ROADMAP Queue 1 item 6)")
+    """Full AGHQ pipeline: optimize, adapt, evaluate the nodes (each
+    warm-started from the mode's latent state) and form the marginals.
+    The posterior draws are sampling.sample_marginal's."""
+    if backend.n_theta > 1:
+        return _aghq_fit_nd(backend, backend.n_theta, k, theta0)
     th0 = 0.0 if theta0 is None else float(np.atleast_1d(theta0)[0])
     mode, H, st = optimize_1d(backend, th0)
     z1, _ = ghe_rule(k)
@@ -285,16 +375,54 @@ def aghq_fit(backend, k: int = 4, theta0=None) -> AGHQFit:
     return fit
 
 
-def marginal_posterior(fit: AGHQFit, j: int = 0):
-    """Marginal of theta_j; for s=1 the node values themselves.
+def marginal_posterior(fit: AGHQFit, j: int = 0, warm=None):
+    """AGHQ marginal of theta_j (aghq::marginal_posterior): for s = 1 the
+    node values themselves; for s > 1 the grid re-adapted with theta_j
+    first, its nodes evaluated from `warm`, the other dimensions
+    integrated by the adapted quadrature.
     Returns dict(theta=(k,), logmargpost=(k,)) sorted by theta."""
-    if len(fit.mode) != 1:
-        raise NotImplementedError(
-            "marginals over more than one hyperparameter are not ported "
-            "yet (ROADMAP Queue 1 item 6)")
-    order = np.argsort(fit.nodes[:, 0])
-    return {"theta": fit.nodes[order, 0],
-            "logmargpost": (-fit.lognll - fit.lognormconst)[order]}
+    if len(fit.mode) == 1:
+        order = np.argsort(fit.nodes[:, 0])
+        return {"theta": fit.nodes[order, 0],
+                "logmargpost": (-fit.lognll - fit.lognormconst)[order]}
+    nodes, mode_p, Lp = _marginal_nodes(fit, j)
+    nlls, _ = fit.backend.node_eval(nodes, warm, keep_states=False)
+    return _marginal_table(fit, nlls, mode_p, Lp)
+
+
+def _marginal_nodes(fit: AGHQFit, j: int):
+    """Re-adapted grid for the marginal of theta_j, dim j ordered first so
+    its node values collapse to k points: (nodes (J, s) in the original
+    theta order, permuted mode, permuted Cholesky factor). The covariance
+    is the fit's (PD-clipped) L L^T, whose principal permutation stays
+    positive definite."""
+    s, k = len(fit.mode), fit.k
+    idx = [j] + [i for i in range(s) if i != j]
+    cov = fit.L @ fit.L.T
+    Lp = np.linalg.cholesky(cov[np.ix_(idx, idx)])
+    mode_p = fit.mode[idx]
+    z, _ = product_grid(k, s)
+    nodes_p = mode_p[None, :] + z @ Lp.T
+    return nodes_p[:, np.argsort(idx)], mode_p, Lp
+
+
+def _marginal_table(fit: AGHQFit, nlls, mode_p, Lp):
+    """logmargpost of theta_j from its re-adapted grid's nlls: the
+    product grid's first dimension varies slowest, in blocks of k^(s-1)
+    nodes, each block summed over the other dimensions."""
+    s, k = len(fit.mode), fit.k
+    _, logw_base = product_grid(k, s)
+    z1, w1 = ghe_rule(k)
+    block = k ** (s - 1)
+    theta_vals = mode_p[0] + Lp[0, 0] * z1
+    logw_other = logw_base.reshape(k, block) - np.log(w1)[:, None]
+    det_other = np.sum(np.log(np.diag(Lp)[1:]))
+    logpdf = np.array([
+        _logsumexp_np(-np.asarray(nlls).reshape(k, block)[i]
+                      + logw_other[i] + det_other) - fit.lognormconst
+        for i in range(k)])
+    order = np.argsort(theta_vals)
+    return {"theta": theta_vals[order], "logmargpost": logpdf[order]}
 
 
 def compute_moment(fit: AGHQFit, fn: Callable = None):

@@ -73,23 +73,24 @@ def nvcc():
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA band kernels cannot be "
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be "
                        "built here")
 
 
-def build() -> Path:
-    """Compile csrc/band_kernels.cu into _build/ (keyed by the source's
-    hash, so an edited source rebuilds) and return the library path."""
-    src = SOURCE.read_bytes()
+def build_library(source: Path, stem: str) -> Path:
+    """Compile one CUDA source into _build/lib{stem}_{tag}.so (the tag is
+    the hash of the source and the flags, so an edited source rebuilds)
+    and return the library path."""
+    src = source.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libband_kernels_{tag}.so"
+    lib = BUILD_DIR / f"lib{stem}_{tag}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+        subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
                        check=True, capture_output=True, text=True)
         os.replace(tmp, lib)
     except subprocess.CalledProcessError as e:
@@ -98,6 +99,12 @@ def build() -> Path:
         if os.path.exists(tmp):
             os.remove(tmp)
     return lib
+
+
+def build() -> Path:
+    """Compile csrc/band_kernels.cu into _build/ and return the library
+    path."""
+    return build_library(SOURCE, "band_kernels")
 
 
 def _library():

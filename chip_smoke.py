@@ -26,10 +26,31 @@ Phases (any failure raises and the script exits non-zero):
      R = 16 and R = 64 (twice each), a profiled Laplace evaluation at
      R = 64, replicate_fits at R = 4, counting the launches of K8-K11;
   7. the batched kernel engine against the batched plain engine at a
-     fixed point of the R = 16 run.
+     fixed point of the R = 16 run;
+  8. a small scattered-IID fit (engine='scatter_iid', IWP order 2, k = 150,
+     q = 40, n = 2000, AGHQ k = 3) on the card against the CPU-f64 values
+     of the JAX package's host path;
+  9. the scattered-IID headline fit: model_fit(..., engine='scatter_iid')
+     at n = 1e5, IWP order 3, k = 2000, an x-clustered IID term with
+     q = 1e4 levels, Poisson, AGHQ k = 3, M = 1000 (the JAX package's
+     bench_bigiid generator), twice, counting the launches of K6/K7 and
+     refusing any torch.linalg factorization or triangular solve on the
+     path;
+ 10. one fit of the scattered q = 1e4 generator (bench_scattered_iid) at
+     n = 5e4, k = 500, M = 500;
+ 11. the dense kernel engine against the dense plain engine at a fixed
+     (theta, V, u, t) of the phase 9 fit, and the outer FD Hessian at its
+     mode from both engines;
+ 12. a profiled scattered-IID Laplace evaluation with its gradient.
+Phase 1 builds csrc/band_kernels.cu (K1-K5, K8-K11) and
+csrc/dense_kernels.cu (K6, K7) with two nvcc processes started together;
+phase 2 also checks K6/K7 against their plain versions on healthy and
+indefinite blocks, at r = 1, 128, 1000 and 2051 right-hand sides, and the
+blocked factor and solves at the headline dimension 2051.
 A line near the end is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
 """
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -47,7 +68,10 @@ N_OBS, K_KNOTS = 100_000, 2000
 D, BW, Q, M_DRAWS = 2048, 3, 4, 3000
 RTOL = 1e-10
 SOURCE = "bayesgp_torch/csrc/band_kernels.cu"
+DENSE_SOURCE = "bayesgp_torch/csrc/dense_kernels.cu"
 REPLACES = {
+    "dense_factor_block": "bayesgp_tpu/linalg/chol_dd.py:144",
+    "dense_solve_lower": "bayesgp_tpu/linalg/chol_dd.py:213",
     "band_factor": "bayesgp_tpu/linalg/band_kernels.py:182",
     "band_fwd_solve": "bayesgp_tpu/linalg/band_kernels.py:230",
     "band_bwd_solve": "bayesgp_tpu/linalg/band_kernels.py:281",
@@ -67,6 +91,18 @@ FORMULA = "y ~ z + f(x, model='IWP', order=3, k={k})"
 SMALL_REF = {"mode": 14.064024, "lognormconst": -4705.760766}
 HEADLINE_CPU_REF = {"mode": 14.670086, "H": -1038.38,
                     "lognormconst": -231831.516962}
+# the scattered-IID slice: Schur dimension of the headline (dpad 2048 + 3
+# tail columns), K7's right-hand-side counts on its path, the dense
+# tolerance (kernel against plain: bit for bit expected)
+DENSE_DIM = 2051
+DENSE_R = (1, 128, 1000, 2051)
+DENSE_RTOL = 1e-12
+IID_FORMULA = "y ~ f(x, model='IWP', order={p}, k={k}) + f(g, model='IID')"
+IID_K, IID_Q, IID_M = 2000, 10_000, 1000
+# CPU-f64 values of the JAX package's host path (prefer_host_opt) on the
+# small scattered-IID model of phase 8
+SCATTER_SMALL_REF = {"mode": (1.8031526021, 3.6902232481),
+                     "lognormconst": -3539.5858495984}
 
 
 T_START = time.perf_counter()
@@ -684,6 +720,291 @@ def phase_batched_fixed_point(batched, bb, be, ys, modes):
                     out["plain"][key], rtol=1e-9)
 
 
+def dense_spd(dev, d, seed):
+    """Seeded Jacobi-equilibrated SPD (d, d) matrix on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    G = torch.randn((d, d), generator=g, device=dev, dtype=torch.float64)
+    A = G @ G.T / d + torch.eye(d, device=dev, dtype=torch.float64)
+    s = torch.rsqrt(torch.diagonal(A))
+    return A * s[:, None] * s[None, :]
+
+
+def log_equal(name, got, want):
+    log(f"  {name}: bit for bit {'yes' if torch.equal(got, want) else 'no'}")
+
+
+def phase_dense_kernels(cd, dev):
+    """K6/K7 against their plain versions on the card; the blocked
+    factorization at the headline dimension, kernel route against plain
+    route."""
+    log(f"== phase 2 (dense): K6/K7 (blocks of {cd.B}; r = {DENSE_R}; "
+        f"blocked factor at dim {DENSE_DIM}), rtol {DENSE_RTOL:g}")
+    A = dense_spd(dev, DENSE_DIM, seed=5)
+    blk = A[:cd.B, :cd.B]              # a block of a larger matrix (strided)
+    bad = blk.clone()
+    bad[0, 0] = 1e-14                  # under the pivot floor: clamp and cap
+    err6 = 0.0
+    for tag, S in (("healthy", blk), ("indefinite", bad)):
+        L, Lp = cd.dense_factor_block(S), cd.dense_factor_block_plain(S)
+        err6 = max(err6, check_close(f"K6 {tag}", L, Lp, rtol=DENSE_RTOL))
+        log_equal(f"K6 {tag}", L, Lp)
+    require(float(L.abs().max()) == cd.L_CAP
+            and bool((torch.diagonal(L) < 0).any()),
+            "the indefinite block met the cap and the clamp")
+    Lkk = cd.dense_factor_block(blk)
+    g = torch.Generator(device=dev).manual_seed(6)
+    err7, rhs = 0.0, {}
+    for r in DENSE_R:
+        rhs[r] = torch.randn((cd.B, r), generator=g, device=dev,
+                             dtype=torch.float64)
+        for trans in (False, True):
+            X = cd.dense_solve_lower(Lkk, rhs[r], trans)
+            Xp = cd.dense_solve_lower_plain(Lkk, rhs[r], trans)
+            tag = f"K7 r={r}{' trans' if trans else ''}"
+            err7 = max(err7, check_close(tag, X, Xp, rtol=DENSE_RTOL))
+            log_equal(tag, X, Xp)
+    Lk, Lpl = cd.cholesky_blocked(A), cd.cholesky_blocked(A, cd.PLAIN)
+    check_close(f"blocked factor dim {DENSE_DIM}", Lk, Lpl, rtol=DENSE_RTOL)
+    log_equal("blocked factor", Lk, Lpl)
+    for r in (1, DENSE_DIM):
+        B = torch.randn((DENSE_DIM, r), generator=g, device=dev,
+                        dtype=torch.float64)
+        for name, fn in (("solve_lower_blocked", cd.solve_lower_blocked),
+                         ("solve_lower_t_blocked", cd.solve_lower_t_blocked)):
+            check_close(f"{name} r={r}", fn(Lk, B), fn(Lk, B, cd.PLAIN),
+                        rtol=DENSE_RTOL)
+    res = (A @ cd.solve_lower_t_blocked(Lk, cd.solve_lower_blocked(Lk, B))
+           - B).abs().max()
+    log(f"  residual |A (L L^T)^-1 B - B| at r={DENSE_DIM}: {float(res):.3e}")
+    kern = cuda_ms(lambda: cd.cholesky_blocked(A), n=5, warm=1)
+    plain = cuda_ms(lambda: cd.cholesky_blocked(A, cd.PLAIN), n=1, warm=0)
+    lib = cuda_ms(lambda: torch.linalg.cholesky(A), n=5, warm=1)
+    log(f"  blocked factor dim {DENSE_DIM}: kernels {kern:.3f} ms, plain "
+        f"{plain:.1f} ms, torch.linalg.cholesky {lib:.3f} ms")
+
+    f8, nb, tri = 8, cd.B, cd.B * (cd.B + 1) // 2
+    rows = {"dense_factor_block": dict(
+        err=err6, ms=cuda_ms(lambda: cd.dense_factor_block(blk)),
+        plain_ms=cuda_ms(lambda: cd.dense_factor_block_plain(blk), n=3,
+                         warm=1),
+        library_ms=cuda_ms(lambda: torch.linalg.cholesky(blk)),
+        # the lower triangle read, the whole factor written; B^3/3 flops
+        nbytes=f8 * (tri + nb * nb), flops=nb ** 3 / 3)}
+    for r in DENSE_R:
+        Br = rhs[r]
+        r_ms = cuda_ms(lambda: cd.dense_solve_lower(Lkk, Br))
+        r_t = cuda_ms(lambda: cd.dense_solve_lower(Lkk, Br, True))
+        log(f"  K7 r={r}: {r_ms:.4f} ms, transposed {r_t:.4f} ms, "
+            f"{r_ms / max(r, 1) * 1e3:.3f} us per column")
+    r = DENSE_R[-1]                    # the log-det backward's width
+    Br = rhs[r]
+    rows["dense_solve_lower"] = dict(
+        err=err7, ms=cuda_ms(lambda: cd.dense_solve_lower(Lkk, Br)),
+        plain_ms=cuda_ms(lambda: cd.dense_solve_lower_plain(Lkk, Br), n=3,
+                         warm=1),
+        library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
+            Lkk, Br, upper=False)),
+        nbytes=f8 * (tri + 2 * nb * r), flops=nb * nb * r, r=r)
+    for name, row in rows.items():
+        row["bound_ms"], row["bound_by"] = bound(row["nbytes"], row["flops"])
+        log(f"  {name}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.2f} ms, library {row['library_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+    return rows
+
+
+def scatter_small_data(n=2000, q=40, seed=0):
+    """Scattered levels over a smooth (the port's CPU test model)."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(0.0, 10.0, n))
+    g = rng.integers(0, q, n).astype(float)
+    lin = 0.8 + 0.5 * np.sin(x) + 0.2 * rng.normal(size=q)[g.astype(int)]
+    return {"x": x, "g": g, "y": rng.poisson(np.exp(lin)).astype(float)}
+
+
+def bigiid_data(n=N_OBS, q=IID_Q, seed=0):
+    """The JAX package's bench_bigiid generator: levels clustered in x
+    (an observation-bin random effect, the overdispersion pattern)."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(0.0, 365.0, n))
+    g = np.minimum(np.floor(x * (q / 365.0)), q - 1)
+    u_true = 0.15 * rng.normal(size=int(g.max()) + 1)
+    f_true = 1.5 + 0.8 * np.sin(2 * np.pi * x / 90.0) + 0.002 * x
+    y = rng.poisson(np.exp(f_true + u_true[g.astype(int)])).astype(float)
+    return {"y": y, "x": x, "g": g}
+
+
+def scattered_data(n=50_000, q=IID_Q, seed=0):
+    """The JAX package's bench_scattered_iid generator: every level spans
+    the whole x range (subject effects in a longitudinal smooth)."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(0.0, 365.0, n))
+    g = rng.integers(0, q, n).astype(float)
+    u_true = 0.1 * rng.normal(size=q)
+    f_true = 1.2 + 0.6 * np.sin(2 * np.pi * x / 90.0)
+    y = rng.poisson(np.exp(f_true + u_true[g.astype(int)])).astype(float)
+    return {"y": y, "x": x, "g": g}
+
+
+def phase_scatter_small(tbg, dev):
+    log("== phase 8: small scattered-IID fit (n=2000, IWP2 k=150, q=40) "
+        "against the JAX package's CPU-f64 host path")
+    t0 = time.perf_counter()
+    fit = tbg.model_fit(IID_FORMULA.format(p=2, k=150),
+                        data=scatter_small_data(), family="Poisson",
+                        engine="scatter_iid", aghq_k=3, M=IID_M, seed=0,
+                        device=dev)
+    mode, lnc = np.asarray(fit.mod.mode), float(fit.mod.lognormconst)
+    ref = SCATTER_SMALL_REF
+    dm = float(np.abs(mode - np.asarray(ref["mode"])).max())
+    dl = abs(lnc - ref["lognormconst"])
+    log(f"  {time.perf_counter() - t0:.2f} s: mode {np.round(mode, 8)} "
+        f"(ref {ref['mode']}), lognormconst {lnc:.8f} (ref "
+        f"{ref['lognormconst']}); max|diff| mode {dm:.2e}, lognormconst "
+        f"{dl:.2e} (tolerance 1e-5)")
+    require(dm < 1e-5 and dl < 1e-5, "small scattered-IID fit matches the "
+            "CPU-f64 reference")
+    require(fit.samps.shape == (149 + 40 + 2, IID_M)
+            and np.all(np.isfinite(fit.samps)), "small scattered-IID draws")
+
+
+class CountCalls:
+    """Counts calls of attributes of a class or module while it is active
+    (the calls still run)."""
+
+    def __init__(self, cls, *names):
+        self.cls, self.names = cls, names
+
+    def __enter__(self):
+        self.calls = {k: 0 for k in self.names}
+        self.saved = {k: getattr(self.cls, k) for k in self.names}
+        for k in self.names:
+            def wrapped(*a, _k=k, **kw):
+                self.calls[_k] += 1
+                return self.saved[_k](*a, **kw)
+            setattr(self.cls, k, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for k, f in self.saved.items():
+            setattr(self.cls, k, f)
+
+
+def phase_scatter_headline(tbg, si, cd, bk, dev):
+    log(f"== phase 9: scattered-IID headline fit (n={N_OBS}, IWP3 "
+        f"k={IID_K}, q={IID_Q} x-clustered levels, Poisson, AGHQ k=3, "
+        f"M={IID_M})")
+    kw = dict(data=bigiid_data(), family="Poisson", engine="scatter_iid",
+              aghq_k=3, M=IID_M, seed=0, device=dev)
+    fml = IID_FORMULA.format(p=3, k=IID_K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cd.reset_launches()
+    bk.reset_launches()
+    with CountCalls(torch.linalg, "cholesky", "cholesky_ex",
+                    "solve_triangular") as lib, CountCalls(
+            si.ScatterIIDBackend, "value_and_grad", "laplace_eval_full",
+            "newton_step") as calls:
+        t0 = time.perf_counter()
+        fit = tbg.model_fit(fml, **kw)
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+    launches = dict(cd.launches)
+    band = dict(bk.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    fit2 = tbg.model_fit(fml, **kw)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    m = fit.mod
+    be = m.backend
+    nfac = launches["dense_factor_block"] // -(-(be.core.dpad + be.core.q)
+                                                // cd.B)
+    log(f"  fit 1: {wall1:.3f} s, fit 2: {wall2:.3f} s (wall, host clock); "
+        f"peak device memory {peak:.2f} GiB")
+    log(f"  mode {np.round(m.mode, 6).tolist()}, H "
+        f"{np.round(m.hessian, 4).tolist()}, lognormconst "
+        f"{m.lognormconst:.6f}")
+    log(f"  node nlls {np.round(m.lognll, 4).tolist()}")
+    grids = [np.round(g["theta"], 4).tolist() for g in m.marginals]
+    log(f"  marginal theta grids {grids}")
+    log(f"  fit 2: mode {np.round(fit2.mod.mode, 6).tolist()}, lognormconst "
+        f"{fit2.mod.lognormconst:.6f}")
+    log(f"  launches in fit 1: {launches} ({nfac} dense factors), band "
+        f"kernels {band}, torch.linalg calls {lib.calls}; Laplace "
+        f"evaluations and Newton steps {calls.calls}")
+    require(np.all(np.isfinite(m.mode)) and math.isfinite(m.lognormconst),
+            "finite scattered-IID mode and lognormconst")
+    require(fit.samps.shape == (IID_K - 1 + IID_Q + 3, IID_M)
+            and np.all(np.isfinite(fit.samps)), "scattered-IID draws")
+    require(all(v > 0 for v in launches.values()),
+            f"K6 and K7 launched by the fit: {launches}")
+    require(not any(lib.calls.values()),
+            f"no torch.linalg factorization on the path: {lib.calls}")
+    require(np.array_equal(m.mode, fit2.mod.mode)
+            and m.lognormconst == fit2.mod.lognormconst
+            and np.array_equal(fit.samps, fit2.samps),
+            "the second scattered-IID fit repeats the first")
+    return fit, launches, wall1, wall2
+
+
+def phase_scattered(tbg, cd, dev):
+    log("== phase 10: scattered q=1e4 fit (n=5e4, IWP3 k=500, levels "
+        "spanning x, Poisson, AGHQ k=3, M=500)")
+    cd.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit = tbg.model_fit(IID_FORMULA.format(p=3, k=500), data=scattered_data(),
+                        family="Poisson", engine="scatter_iid", aghq_k=3,
+                        M=500, seed=0, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = fit.mod
+    q = fit.mod.backend.q_iid          # levels that occur in the data
+    log(f"  {wall:.3f} s (wall): {q} levels, mode "
+        f"{np.round(m.mode, 6).tolist()}, H {np.round(m.hessian, 4).tolist()}"
+        f", lognormconst {m.lognormconst:.6f}; launches {dict(cd.launches)}")
+    require(np.all(np.isfinite(m.mode)) and np.all(np.isfinite(fit.samps))
+            and fit.samps.shape == (499 + q + 3, 500),
+            "finite scattered fit and draws")
+    return wall
+
+
+def phase_scatter_fixed_point(cd, fit):
+    log("== phase 11: dense kernel engine against dense plain engine at a "
+        "fixed point of the scattered-IID headline fit")
+    be = fit.mod.backend
+    j = int(np.argmax(fit.mod.logpost_nodes + fit.mod.logw))
+    V0, u0, t0, _ = fit.mod.states[j]
+    theta = torch.tensor(fit.mod.nodes[j], dtype=torch.float64,
+                         device=be.device)
+    plain = dataclasses.replace(be, dense_ops=cd.PLAIN)
+    out = {}
+    for name, b in (("kernels", be), ("plain", plain)):
+        args = [x.clone().requires_grad_(True) for x in (V0, u0, t0, theta)]
+        F = b._laplace_value(*args)
+        gV, gu, gt, gth = torch.autograd.grad(F, args)
+        with torch.no_grad():
+            factor = b.hessian_factor(V0, u0, t0, theta)
+            zV, zu, zt = b.solve_H(factor, *b.grad_W(V0, u0, t0, theta))
+            nV, nu, nt, _ = b.newton_step(V0, u0, t0, theta)
+        nll, g, _ = b.value_and_grad(theta, (V0, u0, t0))
+        out[name] = dict(F=F.detach(), gV=gV, gu=gu, gt=gt, gth=gth,
+                         hld=b.half_logdet_H(factor), zV=zV, zu=zu, zt=zt,
+                         nV=nV, nu=nu, nt=nt, nll=nll, g=g)
+    for key in out["kernels"]:
+        check_close(f"fixed point {key}", out["kernels"][key],
+                    out["plain"][key], rtol=1e-9)
+    state = (V0, u0, t0)
+    mode = np.asarray(fit.mod.mode)
+    Hk, Hp = be.hess(mode, state), plain.hess(mode, state)
+    log(f"  outer FD Hessian at the mode (h=1e-4, warm from the top node): "
+        f"kernels {np.round(Hk, 6).tolist()}, plain "
+        f"{np.round(Hp, 6).tolist()}; the fit's own "
+        f"{np.round(fit.mod.hessian, 6).tolist()}")
+    return be, theta
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -698,6 +1019,8 @@ def main():
     from bayesgp_torch.fast import batched
     from bayesgp_torch.linalg import band_batched as bb
     from bayesgp_torch.linalg import band_kernels as bk
+    from bayesgp_torch.fast import scatter_iid as si
+    from bayesgp_torch.linalg import chol_dense as cd
     from bayesgp_torch.parallel import replicates as reps
 
     dev = torch.device("cuda:0")
@@ -706,13 +1029,17 @@ def main():
     log(f"  {card}")
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{nvcc_version(bk)}, devices {torch.cuda.device_count()}")
+    # one nvcc process for each source, started together
     t0 = time.perf_counter()
-    lib = bk.build()
-    log(f"  built {lib.name} in {time.perf_counter() - t0:.2f} s (K1-K5 "
-        "and K8-K11, one source)")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        libs = [f.result() for f in [pool.submit(bk.build),
+                                     pool.submit(cd.build)]]
+    log(f"  built {libs[0].name} (K1-K5, K8-K11) and {libs[1].name} (K6, "
+        f"K7) in {time.perf_counter() - t0:.2f} s")
 
     rows = phase_kernels(bk, dev)
     rows.update(phase_batched_kernels(bk, bb, dev))
+    rows.update(phase_dense_kernels(cd, dev))
     small = phase_small_fit(tbg, dev)
     phase_small_replicates(reps, small)
     fit, launches, wall1, wall2 = phase_headline(tbg, bk, dev)
@@ -722,10 +1049,21 @@ def main():
         reps, batched, bb, be, dev)
     phase_batched_fixed_point(batched, bb, be, ys16, modes16)
     launches.update(rep_launches)
+    phase_scatter_small(tbg, dev)
+    ifit, iid_launches, iwall1, iwall2 = phase_scatter_headline(
+        tbg, si, cd, bk, dev)
+    launches.update(iid_launches)
+    swall = phase_scattered(tbg, cd, dev)
+    ibe, itheta = phase_scatter_fixed_point(cd, ifit)
+    log("== phase 12: profiled scattered-IID Laplace evaluation")
+    profile_run("one Laplace evaluation with its gradient, cold start, "
+                "scattered-IID headline",
+                lambda: ibe.value_and_grad(itheta, ibe.init_state()))
 
     kernels = []
     for name, r in rows.items():
-        row = {"name": name, "route": "cuda", "source": SOURCE,
+        row = {"name": name, "route": "cuda",
+               "source": DENSE_SOURCE if name in cd.launches else SOURCE,
                "replaces": REPLACES[name], "launches": launches[name],
                "max_abs_err": r["err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -733,9 +1071,13 @@ def main():
         if "systems" in r:      # a batched kernel: timed at this many
             row["systems"] = r["systems"]
             row["ms_by_systems"] = r["ms_by_systems"]
+        if "r" in r:            # K7: timed at this many right-hand sides
+            row["r"] = r["r"]
         kernels.append(row)
     log(f"headline fit wall s: first {wall1:.3f}, second {wall2:.3f}")
     log(f"replicate fits, wall s per fit: {per_fit}")
+    log(f"scattered-IID headline fit wall s: first {iwall1:.3f}, second "
+        f"{iwall2:.3f}; scattered q=1e4 fit {swall:.3f}")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

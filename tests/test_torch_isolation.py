@@ -22,7 +22,8 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, bayesgp_torch, bayesgp_torch.convert, "
             "bayesgp_torch.parallel.replicates, bayesgp_torch.fast.batched, "
             "bayesgp_torch.linalg.band_batched, "
-            "bayesgp_torch.linalg.band_arrow_batched; "
+            "bayesgp_torch.linalg.band_arrow_batched, "
+            "bayesgp_torch.fast.scatter_iid, bayesgp_torch.linalg.chol_dense; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'bayesgp_tpu')]; "
             "assert not bad, bad")

@@ -79,3 +79,14 @@ def test_unported_routes_raise():
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         tbg.model_fit(FORMULA, data=data, family="Poisson", method="MCMC",
                       device="cpu")
+    # an IWP smooth plus a large IID term: 'auto' does not pick
+    # scatter_iid (the JAX package tries the multi-term banded engine
+    # first); the Gaussian family's third theta is not on scatter_iid
+    n = 1200
+    big = dict(_data(n=n), g=np.arange(n) % 600.0)
+    iid = "y ~ f(x, model='IWP', order=3, k=20) + f(g, model='IID')"
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        tbg.model_fit(iid, data=big, family="Poisson", device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        tbg.model_fit(iid, data=big, family="Gaussian",
+                      engine="scatter_iid", device="cpu")
