@@ -2,12 +2,14 @@
 
 Accepts a formula string (the reference's `f()` vocabulary) or pre-built
 terms, assembles the model, runs the AGHQ fit on the banded single-IWP
-backend or the scattered-IID backend, draws M posterior samples and
-returns a FitResult with the reference's sample-index partitions.
-Routes not ported yet raise NotImplementedError naming the ROADMAP item
-that ports them.
+backend, the multi-term banded backend or the scattered-IID backend,
+draws M posterior samples and returns a FitResult with the reference's
+sample-index partitions. Routes not ported yet raise NotImplementedError
+naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -199,32 +201,60 @@ def _unported(route, item):
 
 
 def _backend(asm, engine, device):
-    """The backend of an assembled model: the banded single-IWP backend,
-    or with engine='scatter_iid' the diagonal-first IID backend; raise
-    for the routes not ported yet."""
+    """The backend of an assembled model, as the JAX package picks it: the
+    banded single-IWP backend for one IWP smooth; with engine=
+    'scatter_iid' the diagonal-first IID backend; else the multi-term
+    banded backend, and the scatter_iid backend where that refuses the
+    model (a large IID term whose levels scatter over x). Raise for the
+    routes not ported yet."""
     from .fast.iwp import build_fast_iwp
+    from .fast.banded import build_banded_backend
+    from .fast.scatter_iid import build_scatter_iid
     instances, md = asm["instances"], asm["md"]
     if not asm["use_banded"]:
         raise _unported("the dense backend (aghq.DenseBackend)", 4)
+    args = (instances, md, asm["design_mat_fixed"], asm["bf_prec"],
+            asm["bf_mean"])
     if engine == "scatter_iid":
-        from .fast.scatter_iid import build_scatter_iid
-        return build_scatter_iid(instances, md, asm["design_mat_fixed"],
-                                 asm["bf_prec"], asm["bf_mean"],
-                                 device=device)
-    if not (len(instances) == 1 and instances[0].kind == "IWP"):
-        raise _unported("the multi-term banded backend (BandedBackend)", 6)
-    if md.n_theta != 1:
-        raise _unported("an AGHQ fit over more than one hyperparameter", 6)
-    inst = instances[0]
-    xf_dense = np.concatenate(
-        [inst.X] + [np.asarray(c) for c in asm["design_mat_fixed"]], axis=1)
-    p = inst.order
-    prior_diag_tail = np.concatenate([
-        np.full(p - 1, inst.boundary_prior["prec"]), asm["bf_prec"]])
-    prior_mean_tail = np.concatenate([
-        np.full(p - 1, inst.boundary_prior["mean"]), asm["bf_mean"]])
-    return build_fast_iwp(inst, md, xf_dense, prior_diag_tail,
-                          prior_mean_tail, inst.x_data, device=device)
+        return build_scatter_iid(*args, device=device)
+    if len(instances) == 1 and instances[0].kind == "IWP":
+        if md.n_theta != 1:
+            raise _unported("the Gaussian family's noise hyperparameter on "
+                            "the banded backend", 6)
+        inst = instances[0]
+        xf_dense = np.concatenate(
+            [inst.X] + [np.asarray(c) for c in asm["design_mat_fixed"]],
+            axis=1)
+        p = inst.order
+        prior_diag_tail = np.concatenate([
+            np.full(p - 1, inst.boundary_prior["prec"]), asm["bf_prec"]])
+        prior_mean_tail = np.concatenate([
+            np.full(p - 1, inst.boundary_prior["mean"]), asm["bf_mean"]])
+        return build_fast_iwp(inst, md, xf_dense, prior_diag_tail,
+                              prior_mean_tail, inst.x_data, device=device)
+    try:
+        return build_banded_backend(*args, device=device)
+    except ValueError as e:
+        # a large IID term the merge refuses: its levels scatter over x
+        try:
+            return build_scatter_iid(*args, device=device)
+        except ValueError:
+            raise e from None
+
+
+def _warn_sick_gate(backend, mod):
+    """Warn when the band engine's sick-factor gate drops the log-det's
+    theta gradient at the returned mode: the optimizer then stopped on
+    the value's explicit gradient alone, and the mode and lognormconst
+    can be off (ROADMAP Queue 3)."""
+    gate_closed = getattr(backend, "gate_closed", None)
+    if gate_closed is None or mod.mode_state is None:
+        return
+    if gate_closed(mod.mode, mod.mode_state):
+        warnings.warn(
+            "the sick-factor gate (|H^-1| >= 1e12) dropped the log-det's "
+            "theta gradient at the mode: the mode and lognormconst may be "
+            "off (ROADMAP Queue 3)", RuntimeWarning, stacklevel=3)
 
 
 def model_fit(formula=None, data=None, method: str = "aghq",
@@ -238,12 +268,13 @@ def model_fit(formula=None, data=None, method: str = "aghq",
 
     Either pass `formula` (string) + `data`, or `response=`/`fixed=`/
     `terms=` explicitly. Ported routes, for an elementwise family with no
-    noise hyperparameter (Poisson, Binomial): one IWP smooth with fixed
-    effects on the banded engine ('banded', or 'auto' at scale), and one
-    IWP smooth plus one IID term with fixed effects on
-    engine='scatter_iid' (two hyperparameters). 'auto' does not pick
-    scatter_iid: the JAX package tries the multi-term banded engine
-    first there, which is not ported yet.
+    noise hyperparameter (Poisson, Binomial), on engine='banded' or on
+    'auto' at scale: one IWP smooth with fixed effects (the banded
+    single-IWP engine); an IWP smooth with other terms (the multi-term
+    banded engine: a large IID term clustered in x merged into the band,
+    other terms in a dense tail); and, where the merge refuses an IID
+    term of more than 4,000 levels, or with engine='scatter_iid', one IWP
+    smooth plus one IID term (the scattered-IID engine).
 
     device: where the fit runs, "cuda" by default; a missing card
     raises rather than falling back. The posterior draws come from a
@@ -268,6 +299,7 @@ def model_fit(formula=None, data=None, method: str = "aghq",
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     mod = aghq_mod.aghq_fit(backend, k=aghq_k, theta0=theta0)
+    _warn_sick_gate(backend, mod)
     samps, _, theta_samps = sampling_mod.sample_marginal(mod, M, gen)
 
     # sample-index partitions (reference R/02_model_fit.R:627-675)

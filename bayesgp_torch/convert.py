@@ -10,7 +10,11 @@ same model; `fast_iwp_arrays` gives the arrays of a backend built here.
 (dpad,), (q,) or a replicate batch's (R, dpad), (R, q).
 A scattered-IID backend is such a core plus level codes and the IID
 term's constants: `scatter_iid_arrays` / `scatter_iid_from_arrays` carry
-it, and `latent_state_iid` its three-part state (V, u, tail).
+it, and `latent_state_iid` its three-part state (V, u, tail). A
+multi-term banded backend is the driver's band arrays plus the tail and
+diagonal terms' priors and the reference-order permutation:
+`banded_arrays` / `banded_from_arrays` carry it (its latent state is
+(V, tail), as a single-IWP backend's).
 `replicate_responses` checks the (R, n) raw-order responses of a
 replicate fit, which both packages take as numpy.
 """
@@ -21,7 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .fast import iwp, scatter_iid
+from .fast import banded, iwp, scatter_iid
 from .model.build import ModelData
 
 # backend fields carried as arrays (FastIWPBackend of either package)
@@ -30,6 +34,29 @@ ARRAY_FIELDS = ("valsT", "start", "seg_lo", "seg_hi", "XFpT", "Z0", "PZ0",
                 "prior_mean_tail")
 # ModelData fields the likelihood and the hyperprior read
 MODEL_FIELDS = ("y", "size", "logPdet", "u", "alpha")
+# BandedBackend fields (either package): arrays, optional arrays, scalars
+BANDED_FIELDS = ("valsT", "start", "XFpT", "Z0", "PZ0", "Z0PZ0", "P_band",
+                 "Tdiags", "prior_diag_tail", "prior_mean_tail", "ref_perm")
+BANDED_OPTIONAL = ("prior_diag_band", "Z0PZ0_pad")
+BANDED_SCALARS = ("drv_theta", "Wl", "G", "d", "dpad", "d_drv",
+                  "logPdet_drv", "logdetT", "w_real")
+
+
+def _model_data(arrs, d_sizes, x_sizes, xf_count):
+    """ModelData of a backend carried as arrays (no dense design)."""
+    y = np.asarray(arrs["y"], np.float64)
+    return ModelData(
+        A=np.zeros((len(y), 0)), y=y, P_blocks=(),
+        logPdet=np.asarray(arrs["logPdet"], np.float64),
+        u=np.asarray(arrs["u"], np.float64),
+        alpha=np.asarray(arrs["alpha"], np.float64),
+        betaprec=np.zeros(0), betamean=np.zeros(0), bf_prec=np.zeros(0),
+        bf_mean=np.zeros(0), size=np.asarray(arrs["size"], np.float64),
+        cens=np.zeros(0), ranks=np.zeros(0, np.int64),
+        case_day=np.zeros(0, np.int64),
+        control_days=np.zeros((0, 0), np.int64), count=np.zeros(0),
+        family=int(arrs["family"]), d_sizes=tuple(d_sizes),
+        x_sizes=tuple(x_sizes), xf_count=int(xf_count))
 
 
 def fast_iwp_arrays(be) -> dict:
@@ -49,21 +76,8 @@ def fast_iwp_from_arrays(arrs: dict, term=None, device="cuda"):
     (or the same fields read off the JAX package's backend). `term` is
     the IWP TermDesign, kept for post-fit use; it may be None."""
     p, d = int(arrs["p"]), int(arrs["d"])
-    y = np.asarray(arrs["y"], np.float64)
-    n = len(y)
-    md = ModelData(
-        A=np.zeros((n, 0)), y=y, P_blocks=(),
-        logPdet=np.asarray(arrs["logPdet"], np.float64),
-        u=np.asarray(arrs["u"], np.float64),
-        alpha=np.asarray(arrs["alpha"], np.float64),
-        betaprec=np.zeros(0), betamean=np.zeros(0), bf_prec=np.zeros(0),
-        bf_mean=np.zeros(0), size=np.asarray(arrs["size"], np.float64),
-        cens=np.zeros(0), ranks=np.zeros(0, np.int64),
-        case_day=np.zeros(0, np.int64),
-        control_days=np.zeros((0, 0), np.int64), count=np.zeros(0),
-        family=int(arrs["family"]), d_sizes=(d,),
-        x_sizes=(p - 1,) if p > 1 else (),
-        xf_count=int(np.shape(arrs["XFpT"])[0]) - (p - 1))
+    md = _model_data(arrs, (d,), (p - 1,) if p > 1 else (),
+                     int(np.shape(arrs["XFpT"])[0]) - (p - 1))
     return iwp.from_arrays(term, md, p, d, int(arrs["dpad"]),
                            {f: arrs[f] for f in ARRAY_FIELDS},
                            float(arrs["logdetT"]), arrs["row_order"],
@@ -93,6 +107,47 @@ def scatter_iid_from_arrays(arrs: dict, term=None, device="cuda"):
         d_sizes=tuple(arrs["d_sizes"]))
     return scatter_iid.from_core(core, md, arrs["codes"], arrs["q_iid"],
                                  logPdet_iid=arrs["logPdet_iid"])
+
+
+def banded_arrays(be) -> dict:
+    """Host arrays of a BandedBackend (either package's): BANDED_FIELDS,
+    BANDED_OPTIONAL (None without padded merged slots), BANDED_SCALARS,
+    the tail and diagonal terms as dicts of their fields, and the
+    MODEL_FIELDS and layout of its (row-sorted) ModelData."""
+    md = be.md
+    out = {f: _host(getattr(be, f)) for f in BANDED_FIELDS}
+    for f in BANDED_OPTIONAL:
+        v = getattr(be, f)
+        out[f] = None if v is None else _host(v)
+    out.update({f: getattr(be, f) for f in BANDED_SCALARS})
+    out["tail_terms"] = [
+        dict(offset=int(t.offset), size=int(t.size),
+             theta_idx=int(t.theta_idx), P=_host(t.P),
+             logPdet=float(t.logPdet), d_size=int(t.d_size))
+        for t in be.tail_terms]
+    out["band_terms"] = [
+        dict(theta_idx=int(t.theta_idx), mask=_host(t.mask),
+             d_size=int(t.d_size), logPdet=float(t.logPdet),
+             Z0PZ0=_host(t.Z0PZ0))
+        for t in be.band_terms]
+    out.update({f: _host(getattr(md, f)) for f in MODEL_FIELDS})
+    out.update(family=int(md.family),
+               d_sizes=tuple(int(x) for x in md.d_sizes),
+               x_sizes=tuple(int(x) for x in md.x_sizes),
+               xf_count=int(md.xf_count))
+    return out
+
+
+def banded_from_arrays(arrs: dict, term=None, device="cuda"):
+    """BandedBackend on `device` from the dict banded_arrays returns (for
+    instance of the JAX package's backend). `term`: the driver's
+    TermDesign, kept for post-fit use; it may be None."""
+    md = _model_data(arrs, arrs["d_sizes"], arrs["x_sizes"],
+                     arrs["xf_count"])
+    arrays = {f: arrs[f] for f in BANDED_FIELDS + BANDED_OPTIONAL}
+    scalars = {f: arrs[f] for f in BANDED_SCALARS}
+    return banded.from_arrays(term, md, arrays, scalars, arrs["tail_terms"],
+                              arrs["band_terms"], device=device)
 
 
 def latent_state_iid(V, u, tail, device="cuda"):

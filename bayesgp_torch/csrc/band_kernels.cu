@@ -26,6 +26,11 @@
 //                   H^{-1} from L, the backward Takahashi recurrence).
 // K5 band_bwd_multi replaces band_kernels.py:bwd_multi_fn (L^T X = Z for
 //                   the posterior draws, one column per draw).
+// K1c-K5c factor_chunked_fn, fwd_solve_chunked_fn, bwd_solve_chunked_fn,
+//                   bwd_multi_chunked_fn, takahashi_chunked_fn
+//                   (band_kernels.py:466-634), the same five functions
+//                   streamed 1024 rows a call to fit VMEM, are K1-K5 here
+//                   at every shape the JAX package sends them (below).
 // K8-K11 band_factor_batched, band_fwd_solve_batched,
 //                   band_bwd_solve_batched, band_takahashi_batched replace
 //                   bayesgp_tpu/linalg/band_batched.py:bfactor_fn, bfwd_fn,
@@ -63,9 +68,17 @@
 //   K2/K3/K5  one thread per right-hand side with its last bw solution
 //       values in registers.
 // Wider bands take generic kernels: threads across one column's band
-// entries (K1) and a shared-memory ring for the window. K4 runs once
-// per gradient and keeps the generic form: threads across the bw
-// entries of a row of H^{-1}, two barriers a row.
+// entries and tail columns (K1) and a shared-memory ring for the window.
+// K4 runs once per gradient and keeps the generic form: threads across
+// the bw entries of a row of H^{-1}, two barriers a row.
+//
+// Every shape the JAX package sends to its kernels runs here, those of
+// its chunked kernels (K1c-K5c, band_kernels.py:466-634) included:
+// bw <= 125 (BW_MAX in the wrapper), any tail width and any d. No buffer
+// grows with d. K1's block holds the tail columns bgt_band_factor_tile
+// allows (its threads and shared memory); the wrapper computes the
+// others with bgt_band_tail_solve, K2 with K1's cap on |Y|, which sums
+// each column in K1's order.
 //
 // The batched kernels. The TPU packed NR systems side by side on the 128
 // lanes because one system filled 6% of a vector; here a system is a
@@ -92,7 +105,12 @@ constexpr double PIVOT_FLOOR = 1e-12;
 constexpr double L_CAP = 1e3;
 constexpr double Y_CAP = 1e8;
 constexpr int RHS_THREADS = 128;     // threads per block in K2/K3/K5
+constexpr int MAX_THREADS = 1024;    // threads a block may have
 constexpr size_t DEFAULT_SMEM = 48 * 1024;
+constexpr size_t MAX_SMEM = 227 * 1024;  // dynamic shared memory a block
+                                         // may have on sm_90
+constexpr double NO_CAP = HUGE_VAL;  // the solves' cap: none (K2), or Y_CAP
+                                     // for the tail tiles K1 leaves to K2
 
 __device__ __forceinline__ double clip(double x, double cap) {
     // NaN propagates (like torch.clamp), unlike fmin/fmax
@@ -373,7 +391,8 @@ __device__ __forceinline__ void fwd_small(const double* __restrict__ L,
                                           const double* __restrict__ rinv,
                                           const double* __restrict__ B,
                                           double* __restrict__ X,
-                                          int d, int r, double* sm) {
+                                          int d, int r, double cap,
+                                          double* sm) {
     constexpr int W = BW + 1;
     const int nt = blockDim.x;
     const int tx = threadIdx.x;
@@ -404,7 +423,7 @@ __device__ __forceinline__ void fwd_small(const double* __restrict__ L,
 #pragma unroll
             for (int t = 1; t <= BW; ++t)
                 if (t <= j) acc -= w[t - 1] * Ls[i * BW + t - 1];
-            const double v = acc * Rs[i];
+            const double v = clip(acc * Rs[i], cap);
 #pragma unroll
             for (int k = BW - 1; k > 0; --k) w[k] = w[k - 1];
             w[0] = v;
@@ -417,9 +436,10 @@ template <int BW>
 __global__ void band_fwd_small(const double* __restrict__ L,
                                const double* __restrict__ rinv,
                                const double* __restrict__ B,
-                               double* __restrict__ X, int d, int r) {
+                               double* __restrict__ X, int d, int r,
+                               double cap) {
     extern __shared__ double sm[];
-    fwd_small<BW>(L, rinv, B, X, d, r, sm);
+    fwd_small<BW>(L, rinv, B, X, d, r, cap, sm);
 }
 
 template <int BW>
@@ -494,7 +514,7 @@ __global__ void band_fwd_batched_small(const double* __restrict__ L,
     extern __shared__ double sm[];
     const size_t s = blockIdx.y;
     const size_t ob = s * d * (BW + 1), od = s * d, ox = s * d * r;
-    fwd_small<BW>(L + ob, rinv + od, B + ox, X + ox, d, r, sm);
+    fwd_small<BW>(L + ob, rinv + od, B + ox, X + ox, d, r, NO_CAP, sm);
 }
 
 template <int BW>
@@ -515,7 +535,7 @@ __device__ __forceinline__ void fwd_columns(const double* __restrict__ L,
                                             const double* __restrict__ B,
                                             double* __restrict__ X,
                                             int d, int bw, int r,
-                                            double* sm) {
+                                            double cap, double* sm) {
     const int W = bw + 1;
     const int nt = blockDim.x;
     const int tx = threadIdx.x;
@@ -545,7 +565,7 @@ __device__ __forceinline__ void fwd_columns(const double* __restrict__ L,
             for (int t = 1, s = ring_dec(slot, W); t <= nprev;
                  ++t, s = ring_dec(s, W))
                 acc -= win[s * nt + tx] * Ls[i * bw + t - 1];
-            const double v = acc * Rs[i];
+            const double v = clip(acc * Rs[i], cap);
             win[slot * nt + tx] = v;
             X[(size_t)j * r + c] = v;
             slot = ring_inc(slot, W);
@@ -557,9 +577,9 @@ __global__ void band_fwd_kernel(const double* __restrict__ L,
                                 const double* __restrict__ rinv,
                                 const double* __restrict__ B,
                                 double* __restrict__ X,
-                                int d, int bw, int r) {
+                                int d, int bw, int r, double cap) {
     extern __shared__ double sm[];
-    fwd_columns(L, rinv, B, X, d, bw, r, sm);
+    fwd_columns(L, rinv, B, X, d, bw, r, cap, sm);
 }
 
 __device__ __forceinline__ void bwd_columns(const double* __restrict__ L,
@@ -630,7 +650,7 @@ __global__ void band_fwd_batched_kernel(const double* __restrict__ L,
     extern __shared__ double sm[];
     const size_t s = blockIdx.y;
     const size_t ob = s * d * (bw + 1), od = s * d, ox = s * d * r;
-    fwd_columns(L + ob, rinv + od, B + ox, X + ox, d, bw, r, sm);
+    fwd_columns(L + ob, rinv + od, B + ox, X + ox, d, bw, r, NO_CAP, sm);
 }
 
 __global__ void band_bwd_batched_kernel(const double* __restrict__ L,
@@ -769,11 +789,11 @@ cudaError_t launch_factor_batched_small(const double* bands, double* L,
 template <int BW>
 cudaError_t launch_rhs_small(int kind, const double* L, const double* rinv,
                              const double* B, double* X, int d, int r,
-                             cudaStream_t st) {
+                             double cap, cudaStream_t st) {
     const int grid = (r + RHS_THREADS - 1) / RHS_THREADS;
     if (kind == 0) {
         band_fwd_small<BW><<<grid, RHS_THREADS, rhs_smem(BW, 0), st>>>(
-            L, rinv, B, X, d, r);
+            L, rinv, B, X, d, r, cap);
     } else if (kind == 1) {
         band_bwd_small<BW><<<grid, RHS_THREADS, rhs_smem(BW + 1, 0), st>>>(
             L, rinv, B, X, d, r);
@@ -808,7 +828,7 @@ cudaError_t launch_rhs_batched_small(int kind, const double* L,
 }
 
 using RhsLaunch = cudaError_t (*)(int, const double*, const double*,
-                                  const double*, double*, int, int,
+                                  const double*, double*, int, int, double,
                                   cudaStream_t);
 using FactorLaunch = cudaError_t (*)(const double*, const double*, double*,
                                      double*, double*, double*, double*,
@@ -842,9 +862,9 @@ const FactorBatchedLaunch kFactorBatchedSmall[SMALL_BW + 1] = {
 
 cudaError_t launch_rhs(int kind, const double* L, const double* rinv,
                        const double* B, double* X, int d, int bw, int r,
-                       cudaStream_t st) {
+                       cudaStream_t st, double cap = NO_CAP) {
     if (bw >= 1 && bw <= SMALL_BW)
-        return kRhsSmall[bw](kind, L, rinv, B, X, d, r, st);
+        return kRhsSmall[bw](kind, L, rinv, B, X, d, r, cap, st);
     const int grid = (r + RHS_THREADS - 1) / RHS_THREADS;
     const size_t smem = rhs_smem(kind == 0 ? bw : bw + 1, bw + 1);
     cudaError_t e;
@@ -852,7 +872,7 @@ cudaError_t launch_rhs(int kind, const double* L, const double* rinv,
         e = allow_smem(band_fwd_kernel, smem);
         if (e != cudaSuccess) return e;
         band_fwd_kernel<<<grid, RHS_THREADS, smem, st>>>(L, rinv, B, X, d,
-                                                         bw, r);
+                                                         bw, r, cap);
     } else if (kind == 1) {
         e = allow_smem(band_bwd_kernel, smem);
         if (e != cudaSuccess) return e;
@@ -895,11 +915,25 @@ cudaError_t launch_rhs_batched(int kind, const double* L, const double* rinv,
 // ------------------------------------------------------ C interface --
 extern "C" {
 
+// Tail columns K1 computes beside the band in one block: all q up to
+// what one block holds (threads and shared memory); the caller computes
+// the rest with bgt_band_tail_solve on the factor.
+int bgt_band_factor_tile(int bw, int q) {
+    if (bw >= 1 && bw <= SMALL_BW) return min(q, MAX_TAIL_SMALL);
+    const long W = bw + 1;
+    const long room = (long)(MAX_SMEM / sizeof(double)) - W * W - STAGE * W;
+    long tile = room > 0 ? room / (W + STAGE) : 0;
+    tile = min(tile, (long)MAX_THREADS - W);
+    return (int)max(0L, min((long)q, tile));
+}
+
 int bgt_band_factor(const double* band, const double* C, double* L,
                     double* rinv, double* Y, double* piv, double* hld,
                     int d, int bw, int q, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    if (bw >= 1 && bw <= SMALL_BW && q <= MAX_TAIL_SMALL)
+    // a tail wider than the block takes would leave columns of Y unwritten
+    if (q > bgt_band_factor_tile(bw, q)) return (int)cudaErrorInvalidValue;
+    if (bw >= 1 && bw <= SMALL_BW)
         return (int)kFactorSmall[bw](band, C, L, rinv, Y, piv, hld, d, q,
                                      st);
     const size_t smem = factor_smem(bw, q);
@@ -908,6 +942,14 @@ int bgt_band_factor(const double* band, const double* C, double* L,
     band_factor_kernel<<<1, round_threads(bw + 1 + q), smem, st>>>(
         band, C, L, rinv, Y, piv, hld, d, bw, q);
     return (int)cudaGetLastError();
+}
+
+// Y = L^{-1} C for the tail columns beyond K1's tile: K2 with K1's cap
+// |Y| <= 1e8, so each column equals what K1 would have computed
+int bgt_band_tail_solve(const double* L, const double* rinv, const double* C,
+                        double* Y, int d, int bw, int r, void* stream) {
+    return (int)launch_rhs(0, L, rinv, C, Y, d, bw, r, (cudaStream_t)stream,
+                           Y_CAP);
 }
 
 int bgt_band_fwd_solve(const double* L, const double* rinv, const double* B,

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from ..basis import reparam
 from ..device import DTYPE
+from ..linalg import band_arrow
 from ..linalg.band_arrow import BandArrowEngine
 from ..model import families
 
@@ -42,6 +43,8 @@ MAX_NEWTON = 100
 # a line-search candidate within this relative margin of the best counts
 # as tied with it
 LS_NOISE = 1e-12
+# outer Hessian: central-difference step of the implicit gradient
+H_FD = 1e-4
 
 
 def pad_dim(d: int, p: int) -> int:
@@ -56,8 +59,41 @@ def _finite(x):
     return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
 
 
+class HostNodes:
+    """The node evaluations and the outer Hessian of the s > 1 host AGHQ
+    path (inference/aghq.optimize_theta, _aghq_fit_nd), for a backend
+    with laplace_eval_full, value_and_grad and device."""
+
+    def node_eval(self, thetas, warm, keep_states=True):
+        """(nlls (J,) numpy, per-node latent state + (factor,), or None):
+        each node of the (J, s) thetas evaluated from the same warm
+        state."""
+        nlls, states = [], []
+        for th in np.asarray(thetas, np.float64):
+            val, st, factor = self.laplace_eval_full(
+                torch.tensor(th, dtype=DTYPE, device=self.device), warm)
+            nlls.append(val)
+            if keep_states:
+                states.append(st + (factor,))
+        return torch.stack(nlls).cpu().numpy(), (states or None)
+
+    def hess(self, theta, state):
+        """Outer Hessian by central differences (step H_FD) of the
+        implicit gradient, every evaluation warm-started from `state`."""
+        s = len(theta)
+        cols = []
+        for i in range(s):
+            e = np.zeros(s)
+            e[i] = H_FD
+            gp = self.value_and_grad(np.asarray(theta) + e, state)[1]
+            gm = self.value_and_grad(np.asarray(theta) - e, state)[1]
+            cols.append(((gp - gm) / (2 * H_FD)).cpu().numpy())
+        H = np.stack(cols)
+        return 0.5 * (H + H.T)
+
+
 @dataclasses.dataclass
-class FastIWPBackend:
+class FastIWPBackend(HostNodes):
     """Arrays and Laplace machinery of one single-IWP model on one device.
 
     Rows are sorted by `start` (the first active V column of each design
@@ -102,6 +138,9 @@ class FastIWPBackend:
         self._seg_prev = (torch.clamp(self.seg_hi - 1, min=0),
                           torch.clamp(self.seg_lo - 1, min=0))
         self._seg_some = (self.seg_hi > 0, self.seg_lo > 0)
+        # the prior band's nonzero off-diagonals (all p of one IWP term)
+        self._p_offsets = [o for o in range(1, self.p + 1)
+                           if bool(self.P_band[o].any())]
         self._logPdet0 = float(np.asarray(self.md.logPdet)[0])
         self._phi = (-torch.log(torch.as_tensor(self.md.alpha, dtype=DTYPE))
                      / torch.as_tensor(self.md.u, dtype=DTYPE)).to(dev)
@@ -132,6 +171,11 @@ class FastIWPBackend:
         if self.n_theta > 1:
             dims.append(float(self.md.n))
         return np.asarray(dims)
+
+    @property
+    def w_count(self):
+        """Latent coordinates counted in the Laplace value's log(2 pi)."""
+        return self.d + self.q
 
     def init_state(self):
         return (torch.zeros(self.dpad, dtype=DTYPE, device=self.device),
@@ -195,7 +239,7 @@ class FastIWPBackend:
         """V^T P_V V over the band."""
         d = self.d
         total = (self.P_band[0] * V[:d] ** 2).sum()
-        for o in range(1, self.p + 1):
+        for o in self._p_offsets:
             total = total + 2.0 * (self.P_band[o, :d - o] * V[o:d]
                                    * V[:d - o]).sum()
         return total
@@ -203,7 +247,7 @@ class FastIWPBackend:
     def _applyP(self, Vd):
         """P_V @ Vd over the band."""
         pv = self.P_band[0] * Vd
-        for o in range(1, self.p + 1):
+        for o in self._p_offsets:
             b = self.P_band[o, :self.d - o]
             pv = pv + F.pad(b * Vd[:-o], (o, 0)) + F.pad(b * Vd[o:], (0, o))
         return pv
@@ -211,7 +255,7 @@ class FastIWPBackend:
     def apply_T(self, V):
         """U = T V over the band of T. V: (..., d)."""
         U = self.Tdiags[0] * V
-        for o in range(1, self.p + 1):
+        for o in range(1, self.Tdiags.shape[0]):
             U = U + F.pad(self.Tdiags[o, o:] * V[..., :-o], (o, 0))
         return U
 
@@ -306,6 +350,16 @@ class FastIWPBackend:
         af, sc, sd = factor
         return (self.engine.half_logdet(af) - torch.log(sc).sum()
                 - torch.log(sd).sum())
+
+    @torch.no_grad()
+    def gate_closed(self, theta, state) -> bool:
+        """Whether the half-log-det backward's sick-factor gate
+        (band_arrow.SICK_INV) drops the log-det's cotangents at theta with
+        the latent state `state` (V, tail, ...): the theta gradient there
+        is then the value's explicit part alone."""
+        th = torch.as_tensor(theta, dtype=DTYPE, device=self.device)
+        af = self.hessian_factor(state[0], state[1], th)[0]
+        return bool(self.engine.gate_peak(af) >= band_arrow.SICK_INV)
 
     # -- inner Newton ---------------------------------------------------
     @torch.no_grad()
@@ -414,7 +468,7 @@ class FastIWPBackend:
         half_logdet = hld - torch.log(sc).sum() - torch.log(sd).sum()
         f = (-families.log_lik(e0, self.md, theta)
              + self._prior_neg(V, tail, theta))
-        return (f + half_logdet - 0.5 * (self.d + self.q) * LOG2PI
+        return (f + half_logdet - 0.5 * self.w_count * LOG2PI
                 - self.logdetT)
 
     def _laplace_value_direct(self, V, tail, theta, factor, eta=None):
@@ -423,7 +477,7 @@ class FastIWPBackend:
         f = (-families.log_lik(e0, self.md, theta)
              + self._prior_neg(V, tail, theta))
         return (f + self.half_logdet_H(factor)
-                - 0.5 * (self.d + self.q) * LOG2PI - self.logdetT)
+                - 0.5 * self.w_count * LOG2PI - self.logdetT)
 
     @torch.no_grad()
     def laplace_eval_full(self, theta, warm):

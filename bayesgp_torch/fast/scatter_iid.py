@@ -53,8 +53,6 @@ from ..model import families
 from . import iwp
 
 LOG2PI = math.log(2.0 * math.pi)
-# outer Hessian: central-difference step of the implicit gradient
-H_FD = 1e-4
 
 
 class CellPlan(NamedTuple):
@@ -149,7 +147,7 @@ class SchurFactor(NamedTuple):
 
 
 @dataclasses.dataclass
-class ScatterIIDBackend:
+class ScatterIIDBackend(iwp.HostNodes):
     """FastIWPBackend core + a scattered IID block, with the Laplace
     machinery of one model on one device. Latent state: (V', u, t)."""
     core: Any               # fast/iwp.FastIWPBackend without the IID term
@@ -421,33 +419,6 @@ class ScatterIIDBackend:
         val, st = self.laplace_nll(th, warm)
         (g,) = torch.autograd.grad(val, th)
         return val.detach(), g, st
-
-    # -- AGHQ protocol -------------------------------------------------------
-    def node_eval(self, thetas, warm, keep_states=True):
-        """(nlls (J,) numpy, per-node (V, u, t, factor) or None): each node
-        of the (J, s) thetas evaluated from the same warm state."""
-        nlls, states = [], []
-        for th in np.asarray(thetas, np.float64):
-            val, st, factor = self.laplace_eval_full(
-                torch.tensor(th, dtype=DTYPE, device=self.device), warm)
-            nlls.append(val)
-            if keep_states:
-                states.append(st + (factor,))
-        return torch.stack(nlls).cpu().numpy(), (states or None)
-
-    def hess(self, theta, state):
-        """Outer Hessian by central differences (step H_FD) of the implicit
-        gradient, every evaluation warm-started from `state`."""
-        s = len(theta)
-        cols = []
-        for i in range(s):
-            e = np.zeros(s)
-            e[i] = H_FD
-            gp = self.value_and_grad(np.asarray(theta) + e, state)[1]
-            gm = self.value_and_grad(np.asarray(theta) - e, state)[1]
-            cols.append(((gp - gm) / (2 * H_FD)).cpu().numpy())
-        H = np.stack(cols)
-        return 0.5 * (H + H.T)
 
     def noise_rows(self):
         """Rows of the standard normal noise `sample` takes, in order."""

@@ -72,6 +72,7 @@ class AGHQFit:
     k: int
     backend: Any = None
     marginals: list = field(default_factory=list)  # per-dim (theta, logpdf)
+    mode_state: Any = None        # the latent state at the mode
 
     @property
     def logpost_nodes(self):
@@ -340,7 +341,7 @@ def _aghq_fit_nd(backend, s: int, k: int, theta0) -> AGHQFit:
     nlls, states = backend.node_eval(nodes, warm)
     fit = AGHQFit(mode=mode, hessian=H, L=L, nodes=nodes, logw=logw,
                   lognll=nlls, lognormconst=_logsumexp_np(-nlls + logw),
-                  states=states, k=k, backend=backend)
+                  states=states, k=k, backend=backend, mode_state=warm)
     fit.marginals = [marginal_posterior(fit, j, warm=warm) for j in range(s)]
     return fit
 
@@ -370,7 +371,7 @@ def aghq_fit(backend, k: int = 4, theta0=None) -> AGHQFit:
     fit = AGHQFit(mode=np.asarray([mode]), hessian=np.asarray([[H]]),
                   L=np.asarray([[Lad]]), nodes=nodes.reshape(k, 1),
                   logw=logw, lognll=nlls, lognormconst=lognormconst,
-                  states=states, k=k, backend=backend)
+                  states=states, k=k, backend=backend, mode_state=st)
     fit.marginals = [marginal_posterior(fit, 0)]
     return fit
 

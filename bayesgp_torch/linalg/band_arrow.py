@@ -6,9 +6,11 @@ The conditional Hessian of a single-IWP model has the form
 
 BandArrowEngine factors it with the band kernels of band_kernels.py
 (K1 factor with the fused Y = L^{-1} C, K2/K3 solves, K5 draws, K4
-selected inverse) and does the small dense Schur tail
-S = Hd - Y^T Y with torch.linalg. Bands are (d, bw+1) with row j,
-column o holding Hb[j+o, j].
+selected inverse) and the dense Schur tail S = Hd - Y^T Y: with
+torch.linalg below DENSE_TAIL_MIN columns, and from there on the blocked
+dense Cholesky of chol_dense.py (K6/K7), as the JAX package's
+small_chol routes tails of 256 columns and more. Bands are (d, bw+1)
+with row j, column o holding Hb[j+o, j].
 
 `arrow_half_logdet` is the differentiable half log-det: a
 torch.autograd.Function whose backward is the Takahashi selected inverse
@@ -23,9 +25,12 @@ from typing import NamedTuple
 import torch
 
 from . import band_kernels as bk
+from . import chol_dense
 
 # relative diagonal jitter of the second factorization attempt
 CHOL_JITTER = 1e-4
+# tails at least this wide factor on the blocked dense kernels
+DENSE_TAIL_MIN = 256
 # |H^{-1}| above this on the selected entries marks a sick (pivot-clamped)
 # factor, whose log-det cotangents are dropped
 SICK_INV = 1e12
@@ -67,7 +72,8 @@ class BandFactor(NamedTuple):
     L: torch.Tensor      # (d, bw+1) band of the factor
     rinv: torch.Tensor   # (d,) 1 / L[j, j]
     Y: torch.Tensor      # (d, q) L^{-1} C
-    Ls: torch.Tensor     # (q, q) lower Cholesky of the Schur complement
+    Ls: torch.Tensor     # lower Cholesky of the Schur complement: (q, q),
+    #                      or on the dense route the padded blocked factor
     hld_b: torch.Tensor  # () half log-det of the banded part
 
 
@@ -75,25 +81,45 @@ class BandArrowEngine:
     """Factor / solve / half log-det / precision sampling of one arrowhead
     shape (d, bw, q). `ops` is the table of band operations
     (band_kernels.KERNELS by default; band_kernels.PLAIN runs the plain
-    versions on any device, for comparison)."""
+    versions on any device, for comparison). A tail of DENSE_TAIL_MIN
+    columns or more factors with chol_dense's blocked routines."""
 
     def __init__(self, d: int, bw: int, q: int, ops=None):
         self.d, self.bw, self.q = d, bw, q
         self.ops = bk.KERNELS if ops is None else ops
+        self.dense_tail = q >= DENSE_TAIL_MIN
 
     def with_ops(self, ops):
         return BandArrowEngine(self.d, self.bw, self.q, ops)
+
+    # -- the Schur tail ----------------------------------------------------
+    def _tail_chol(self, S):
+        if self.dense_tail:
+            return chol_dense.cholesky_blocked(S)
+        return chol_jittered(S)
+
+    def _tail_solve_L(self, Ls, b):
+        if self.dense_tail:
+            return chol_dense.solve_lower_blocked(Ls, b)
+        return _solve_L(Ls, b)
+
+    def _tail_solve_Lt(self, Ls, b):
+        if self.dense_tail:
+            return chol_dense.solve_lower_t_blocked(Ls, b)
+        return _solve_Lt(Ls, b)
 
     def factor(self, band, C, Hd):
         with torch.no_grad():
             band = band.detach().contiguous()
             C = C.detach().contiguous()
             L, rinv, Y, hld_b = self.ops.factor(band, C)
-            Ls = (chol_jittered(Hd.detach() - Y.T @ Y) if self.q
+            Ls = (self._tail_chol(Hd.detach() - Y.T @ Y) if self.q
                   else Hd.detach())
         return BandFactor(L, rinv, Y, Ls, hld_b)
 
     def half_logdet(self, f: BandFactor):
+        if self.dense_tail:
+            return f.hld_b + chol_dense.half_logdet(f.Ls)
         return f.hld_b + torch.log(torch.diagonal(f.Ls)).sum()
 
     def solve(self, f: BandFactor, rb, rd):
@@ -101,7 +127,8 @@ class BandArrowEngine:
         u = self.ops.fwd_solve(f.L, f.rinv, rb.reshape(-1, 1).contiguous())
         u = u[:, 0]
         if self.q:
-            zd = _solve_Lt(f.Ls, _solve_L(f.Ls, (rd - f.Y.T @ u)[:, None]))
+            zd = self._tail_solve_Lt(
+                f.Ls, self._tail_solve_L(f.Ls, (rd - f.Y.T @ u)[:, None]))
             zd = zd[:, 0]
             u = u - f.Y @ zd
         else:
@@ -117,7 +144,7 @@ class BandArrowEngine:
         """x = L_full^{-T} z: each column ~ N(0, H^{-1}).
         zb (d, M), zd (q, M)."""
         if self.q:
-            xd = _solve_Lt(f.Ls, zd)
+            xd = self._tail_solve_Lt(f.Ls, zd)
             rhs = zb - f.Y @ xd
         else:
             xd = zd
@@ -125,26 +152,43 @@ class BandArrowEngine:
         xb = self.ops.bwd_multi(f.L, f.rinv, rhs.contiguous())
         return xb, xd
 
-    def hld_backward(self, f: BandFactor, ct):
-        """Cotangents of the half log-det for (band, C, Hd):
-        Hinv_bb|band = Takahashi(Hb) + band(W S^{-1} W^T),
-        Hinv_bd = -W S^{-1}, Hinv_dd = S^{-1}, with W = Hb^{-1} C."""
+    def _hinv_parts(self, f: BandFactor):
+        """The entries of H^{-1} the half-log-det backward reads:
+        Hinv_bb|band = Takahashi(Hb) + band(W S^{-1} W^T), A = W S^{-1}
+        (Hinv_bd = -A) and Hinv_dd = S^{-1}, with W = Hb^{-1} C (A and
+        S^{-1} None when q = 0)."""
         d, bw, q = self.d, self.bw, self.q
         dt, dev = f.L.dtype, f.L.device
         hinv_band = self.ops.takahashi(f.L, f.rinv)          # (d, bw+1)
+        if not q:
+            return hinv_band, None, None
+        Wm = self.solve_Lt(f, f.Y)                             # (d, q)
+        Sinv = self._tail_solve_Lt(f.Ls, self._tail_solve_L(
+            f.Ls, torch.eye(q, dtype=dt, device=dev)))
+        A = Wm @ Sinv                                          # (d, q)
+        corr = torch.zeros((d, bw + 1), dtype=dt, device=dev)
+        for o in range(bw + 1):
+            corr[:d - o, o] = (A[o:] * Wm[:d - o]).sum(1)
+        return hinv_band + corr, A, Sinv
+
+    def gate_peak(self, f: BandFactor):
+        """The largest |H^{-1}| entry the sick-factor gate tests (inf where
+        one is not finite): the band of Hinv_bb and A. The half-log-det
+        backward drops its cotangents where this reaches SICK_INV."""
+        hinv_band, A, _ = self._hinv_parts(f)
+        return _gate_peak(hinv_band, A)
+
+    def hld_backward(self, f: BandFactor, ct):
+        """Cotangents of the half log-det for (band, C, Hd): ct times
+        0.5 H^{-1} on the band's diagonal, H^{-1} off it, -A for C and
+        0.5 S^{-1} for Hd (_hinv_parts)."""
+        d, bw, q = self.d, self.bw, self.q
+        dt, dev = f.L.dtype, f.L.device
+        hinv_band, A, Sinv = self._hinv_parts(f)
         if q:
-            Wm = self.solve_Lt(f, f.Y)                         # (d, q)
-            Sinv = _solve_Lt(f.Ls, _solve_L(
-                f.Ls, torch.eye(q, dtype=dt, device=dev)))
-            A = Wm @ Sinv                                      # (d, q)
-            corr = torch.zeros((d, bw + 1), dtype=dt, device=dev)
-            for o in range(bw + 1):
-                corr[:d - o, o] = (A[o:] * Wm[:d - o]).sum(1)
-            hinv_band = hinv_band + corr
             ct_C = (-ct) * A
             ct_Hd = (0.5 * ct) * Sinv
         else:
-            A = None
             ct_C = torch.zeros((d, 0), dtype=dt, device=dev)
             ct_Hd = torch.zeros((0, 0), dtype=dt, device=dev)
         w = torch.ones((1, bw + 1), dtype=dt, device=dev)
@@ -153,13 +197,7 @@ class BandArrowEngine:
         # |H^{-1}| <= cond ~ 1e8, so the gate is the identity there; on a
         # pivot-clamped factor the selected inverse overflows and its
         # cotangents are dropped (the value's explicit gradient remains)
-        inf = torch.tensor(float("inf"), dtype=dt, device=dev)
-        big = torch.where(torch.isfinite(hinv_band), hinv_band.abs(),
-                          inf).max()
-        if A is not None:
-            big = torch.maximum(big, torch.where(
-                torch.isfinite(A), A.abs(), inf).max())
-        okf = (big < SICK_INV).to(dt)
+        okf = (_gate_peak(hinv_band, A) < SICK_INV).to(dt)
 
         def san(x):
             return okf * torch.where(torch.isfinite(x), x,
@@ -175,6 +213,18 @@ class BandArrowEngine:
         the primal skips the factorization, the backward gives the same
         cotangents from `f`."""
         return _HalfLogdet.apply(band, C, Hd, self, f)
+
+
+def _gate_peak(hinv_band, A):
+    """max |x| over the band of H^{-1} and A, inf where an entry is not
+    finite."""
+    inf = torch.tensor(float("inf"), dtype=hinv_band.dtype,
+                       device=hinv_band.device)
+    big = torch.where(torch.isfinite(hinv_band), hinv_band.abs(), inf).max()
+    if A is not None:
+        big = torch.maximum(big, torch.where(torch.isfinite(A), A.abs(),
+                                             inf).max())
+    return big
 
 
 class _HalfLogdet(torch.autograd.Function):

@@ -24,6 +24,10 @@ use and bound through ctypes, and counts the launch in `launches`.
 There is no fallback from one to the other. The same library holds the
 batched kernels K8-K11, whose wrappers are in band_batched.py.
 
+They serve every shape the JAX package sends to its kernels, those of
+its chunked kernels K1c-K5c included: a band up to BW_MAX = 125 wide
+(every wrapper refuses a wider one), any tail width and any d.
+
 The factor keeps the modified-Cholesky guards of the JAX package's K1:
 a pivot below 1e-12 becomes max(|pivot|, 1e-12), |L| is capped at 1e3
 and |Y| at 1e8. On a healthy equilibrated system none of them binds.
@@ -43,6 +47,9 @@ import torch
 PIVOT_FLOOR = 1e-12
 L_CAP = 1e3
 Y_CAP = 1e8
+# widest band the kernels take: the JAX package sends bands up to 125 to
+# its kernels, and every kernel's shared memory holds that width
+BW_MAX = 125
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "band_kernels.cu"
@@ -113,6 +120,8 @@ def _library():
         lib = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.bgt_band_factor.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
+        lib.bgt_band_factor_tile.argtypes = [I, I]
+        lib.bgt_band_tail_solve.argtypes = [P, P, P, P, I, I, I, P]
         for name in ("bgt_band_fwd_solve", "bgt_band_bwd_solve",
                      "bgt_band_bwd_multi"):
             getattr(lib, name).argtypes = [P, P, P, P, I, I, I, P]
@@ -123,7 +132,8 @@ def _library():
                      "bgt_band_bwd_solve_batched"):
             getattr(lib, name).argtypes = [P, P, P, P, I, I, I, I, P]
         lib.bgt_band_takahashi_batched.argtypes = [P, P, P, I, I, I, P]
-        for name in ("bgt_band_factor", "bgt_band_fwd_solve",
+        for name in ("bgt_band_factor", "bgt_band_factor_tile",
+                     "bgt_band_tail_solve", "bgt_band_fwd_solve",
                      "bgt_band_bwd_solve", "bgt_band_bwd_multi",
                      "bgt_band_takahashi", "bgt_band_factor_batched",
                      "bgt_band_fwd_solve_batched",
@@ -174,9 +184,15 @@ def _launch(name, fn, *args, counts=launches):
     counts[name] += 1
 
 
+def _check_bw(W):
+    if not 1 <= W <= BW_MAX + 1:
+        raise ValueError(f"band width {W - 1} is outside 0..{BW_MAX}")
+
+
 def _check_factor(L, rinv):
     _check(L, "L", 2)
     _check(rinv, "rinv", 1)
+    _check_bw(L.shape[1])
     if rinv.shape[0] != L.shape[0]:
         raise ValueError("rinv must have one entry per band row")
 
@@ -189,36 +205,67 @@ def _check_rhs(L, B):
 
 # -- K1: factor -----------------------------------------------------------
 
+def _prev_rows(A, j, n):
+    """Rows j-1, j-2, ..., j-n of A (the t-th at t-1)."""
+    return A[j - n:j].flip(0)
+
+
+def _subtract_in_order(acc, prods):
+    """acc - prods[0] - prods[1] - ..., one row at a time: the kernels'
+    order of sums."""
+    for t in range(prods.shape[0]):
+        acc = acc - prods[t]
+    return acc
+
+
+def _multipliers(L):
+    """(d, bw) multipliers of the forward recurrences, [j, t-1] =
+    L[j-t, t] (zero where j < t)."""
+    d, W = L.shape
+    j = torch.arange(d, device=L.device)[:, None]
+    t = torch.arange(1, W, device=L.device)[None, :]
+    rows = torch.clamp(j - t, min=0)
+    return torch.where(j >= t, L[rows, t], L.new_zeros(()))
+
+
 def band_factor_plain(band, C):
-    """Plain version of band_factor (same arithmetic, column by column)."""
+    """Plain version of band_factor (same arithmetic, column by column:
+    the products of a column are formed at once, then subtracted in the
+    kernel's order)."""
     d, W = band.shape
     bw = W - 1
     L = torch.zeros_like(band)
     Y = torch.zeros_like(C)
     rinv = band.new_zeros(d)
     logdet = band.new_zeros(())
+    # shifted[t-1, o] = o + t: the entry of row j-t that meets entry o of
+    # column j (o = 0 gives the pivot's L[j-t, t] itself)
+    ar = torch.arange(W, device=band.device)
+    shifted = ar[None, :] + ar[1:, None]
+    inside = shifted <= bw
+    shifted = torch.clamp(shifted, max=bw)
+    zero = band.new_zeros(())
     for j in range(d):
         nprev = min(j, bw)
-        piv = band[j, 0]
-        for t in range(1, nprev + 1):
-            m = L[j - t, t]
-            piv = piv - m * m
+        acc = torch.cat([band[j], C[j]])
+        if nprev:
+            P = _prev_rows(L, j, nprev)                 # row t-1 = L[j-t]
+            m = P[ar[:nprev], ar[1:nprev + 1]][:, None]  # L[j-t, t]
+            S = torch.where(inside[:nprev],
+                            P.gather(1, shifted[:nprev]) * m, zero)
+            acc = _subtract_in_order(acc, torch.cat(
+                [S, _prev_rows(Y, j, nprev) * m], dim=1))
+        piv = acc[0]
         pv = torch.where(piv < PIVOT_FLOOR,
                          torch.clamp(piv.abs(), min=PIVOT_FLOOR), piv)
         rs = 1.0 / torch.sqrt(pv)
         logdet = logdet + torch.log(pv)
-        acc = band[j].clone()
-        for t in range(1, nprev + 1):
-            acc[1:W - t] = acc[1:W - t] - L[j - t, 1 + t:] * L[j - t, t]
-        col = acc * rs
+        col = acc[:W] * rs
         col[0] = pv * rs
         if j + W > d:
             col[d - j:] = 0.0
         L[j] = torch.clamp(col, -L_CAP, L_CAP)
-        yacc = C[j].clone()
-        for t in range(1, nprev + 1):
-            yacc = yacc - Y[j - t] * L[j - t, t]
-        Y[j] = torch.clamp(yacc * rs, -Y_CAP, Y_CAP)
+        Y[j] = torch.clamp(acc[W:] * rs, -Y_CAP, Y_CAP)
         rinv[j] = rs
     return L, rinv, Y, 0.5 * logdet
 
@@ -226,25 +273,42 @@ def band_factor_plain(band, C):
 def band_factor(band, C):
     """(L, rinv, Y, hld) for a (d, bw+1) lower band and a (d, q) tail
     block C: L L^T = band (guarded), rinv = 1/diag(L), Y = L^{-1} C and
-    hld = 0.5 * sum(log pivots), a 0-d tensor."""
+    hld = 0.5 * sum(log pivots), a 0-d tensor.
+
+    On a card K1 computes the first columns of Y beside the band, as many
+    as one block holds (bgt_band_factor_tile); the others are one K2
+    launch on the new factor with K1's cap on |Y| (bgt_band_tail_solve,
+    counted as a band_fwd_solve launch), which computes each column as
+    K1 would."""
     _check(band, "band", 2)
     _check(C, "C", 2)
+    _check_bw(band.shape[1])
     if C.shape[0] != band.shape[0]:
         raise ValueError("C must have one row per band row")
     if not _on_cuda(band, C):
         return band_factor_plain(band, C)
     d, W = band.shape
     q = C.shape[1]
+    lib = _library()
+    tile = lib.bgt_band_factor_tile(W - 1, q)
+    C0 = C if tile == q else C[:, :tile].contiguous()
     L = torch.empty_like(band)
     rinv = band.new_empty(d)
-    Y = torch.empty_like(C)
+    Y0 = torch.empty_like(C0)
     piv = band.new_empty(d)          # scratch: the clamped pivots
     hld = band.new_empty(())
     with torch.cuda.device(band.device):
-        _launch("band_factor", _library().bgt_band_factor,
-                _ptr(band), _ptr(C), _ptr(L), _ptr(rinv), _ptr(Y),
-                _ptr(piv), _ptr(hld), d, W - 1, q, _stream(band))
-    return L, rinv, Y, hld
+        _launch("band_factor", lib.bgt_band_factor,
+                _ptr(band), _ptr(C0), _ptr(L), _ptr(rinv), _ptr(Y0),
+                _ptr(piv), _ptr(hld), d, W - 1, tile, _stream(band))
+        if tile == q:
+            return L, rinv, Y0, hld
+        C1 = C[:, tile:].contiguous()
+        Y1 = torch.empty_like(C1)
+        _launch("band_fwd_solve", lib.bgt_band_tail_solve,
+                _ptr(L), _ptr(rinv), _ptr(C1), _ptr(Y1), d, W - 1,
+                q - tile, _stream(band))
+    return L, rinv, torch.cat([Y0, Y1], dim=1), hld
 
 
 # -- K2: forward solve ------------------------------------------------------
@@ -252,10 +316,10 @@ def band_factor(band, C):
 def band_fwd_solve_plain(L, rinv, B):
     d, W = L.shape
     X = torch.zeros_like(B)
+    mult = _multipliers(L)[:, :, None]
     for j in range(d):
-        acc = B[j].clone()
-        for t in range(1, min(j, W - 1) + 1):
-            acc = acc - X[j - t] * L[j - t, t]
+        n = min(j, W - 1)
+        acc = _subtract_in_order(B[j], _prev_rows(X, j, n) * mult[j, :n])
         X[j] = acc * rinv[j]
     return X
 
@@ -280,9 +344,9 @@ def band_bwd_solve_plain(L, rinv, B):
     d, W = L.shape
     X = torch.zeros_like(B)
     for j in range(d - 1, -1, -1):
-        acc = B[j].clone()
-        for t in range(1, min(d - 1 - j, W - 1) + 1):
-            acc = acc - X[j + t] * L[j, t]
+        n = min(d - 1 - j, W - 1)
+        acc = _subtract_in_order(B[j], X[j + 1:j + 1 + n]
+                                 * L[j, 1:1 + n, None])
         X[j] = acc * rinv[j]
     return X
 
@@ -328,13 +392,10 @@ def band_takahashi_plain(L, rinv):
         rs = rinv[j]
         lr = L[j, 1:] * rs
         acc = L.new_zeros(bw)
-        for t in range(bw):
-            acc = acc + lr[t] * blk[t]
+        for prod in lr[:, None] * blk:
+            acc = acc + prod
         Z[j, 1:] = -acc
-        zjj = rs * rs
-        for t in range(bw):
-            zjj = zjj - lr[t] * Z[j, t + 1]
-        Z[j, 0] = zjj
+        Z[j, 0] = _subtract_in_order(rs * rs, lr * Z[j, 1:])
         if bw:
             new = L.new_zeros((bw, bw))
             new[0, :] = Z[j, :bw]

@@ -91,13 +91,16 @@ class FitResult:
                 include_intercept: bool = True, only_samples: bool = False,
                 level: float = 0.95):
         """Posterior of an IWP component at new locations (reference
-        predict.FitResult, R/03_post_fit.R:53-125), on the host. Output
-        rows are in sorted-x order."""
+        predict.FitResult, R/03_post_fit.R:53-125), on the host, from the
+        draws in reference order (a multi-term fit's too). Output rows
+        are in sorted-x order."""
         inst = self._instance_for(variable)
-        if inst.kind != "IWP":
+        if inst.kind == "sGP":
             raise NotImplementedError(
-                f"predict for {inst.kind} terms is not ported yet "
-                "(ROADMAP Queue 1 item 6)")
+                "predict for sGP terms is not ported yet (ROADMAP Queue 1 "
+                "item 6)")
+        if inst.kind != "IWP":
+            raise ValueError(f"predict not defined for {inst.kind} terms")
         gl_idx = self.boundary_samp_indexes.get(variable, np.array([], int))
         global_samps = self.samps[gl_idx, :] if len(gl_idx) else None
         coefsamps = self.samps[self.random_samp_indexes[variable], :]

@@ -19,11 +19,12 @@ Phases (any failure raises and the script exits non-zero):
      small replicate fits (R = 5 in groups of 2) packed against
      sequential;
   4. the headline fit: model_fit at n = 1e5, IWP order 3, k = 2000,
-     Poisson, AGHQ k = 4, M = 3000, counting every kernel launch;
+     Poisson, AGHQ k = 4, M = 3000, counting every kernel launch, and a
+     profiled Laplace evaluation of it;
   5. the kernel engine against the plain engine at a fixed (theta, V,
      tail) point of that fit;
   6. replicate fits on the headline design: replicate_fits_packed at
-     R = 16 and R = 64 (twice each), a profiled Laplace evaluation at
+     R = 16 (twice) and R = 64, a profiled Laplace evaluation at
      R = 64, replicate_fits at R = 4, counting the launches of K8-K11;
   7. the batched kernel engine against the batched plain engine at a
      fixed point of the R = 16 run;
@@ -39,14 +40,31 @@ Phases (any failure raises and the script exits non-zero):
  10. one fit of the scattered q = 1e4 generator (bench_scattered_iid) at
      n = 5e4, k = 500, M = 500;
  11. the dense kernel engine against the dense plain engine at a fixed
-     (theta, V, u, t) of the phase 9 fit, and the outer FD Hessian at its
-     mode from both engines;
- 12. a profiled scattered-IID Laplace evaluation with its gradient.
+     (theta, V, u, t) of the phase 9 fit, and the kernel engine's outer
+     FD Hessian at its mode;
+ 12. a profiled scattered-IID Laplace evaluation with its gradient;
+ 13. a small merged-IID fit (tests/test_iid_band.py's problem: n = 600,
+     IWP2 k = 12, 30 levels merged into the band, AGHQ k = 3) against the
+     CPU-f64 values of the JAX package's host path;
+ 14. the merged-IID headline: model_fit with engine='auto' on the
+     bench_bigiid generator (n = 1e5, IWP3 k = 2000, q = 1e4 levels
+     clustered in x, merged into the band: d = 13993, bw = 34, q = 3),
+     twice, counting K1-K5 launches, beside phase 9's scatter_iid fit of
+     the same data;
+ 15. the kernel engine against the plain engine at a fixed point of a
+     reduced merged model (n = 5000, k = 100, q = 600);
+ 16. the tail-term cell: bench_scattered_iid's engine='banded' q = 512
+     point (n = 5e4, k = 500, a 515-wide tail on K6/K7);
+ 17. a profiled merged-IID Laplace evaluation with its gradient.
 Phase 1 builds csrc/band_kernels.cu (K1-K5, K8-K11) and
 csrc/dense_kernels.cu (K6, K7) with two nvcc processes started together;
 phase 2 also checks K6/K7 against their plain versions on healthy and
 indefinite blocks, at r = 1, 128, 1000 and 2051 right-hand sides, and the
-blocked factor and solves at the headline dimension 2051.
+blocked factor and solves at the headline dimension 2051, and K1-K5 at
+the shapes the JAX package sends to its chunked kernels K1c-K5c
+(CHUNKED_SHAPES), the corners of bw <= 125 and of the tail width
+included, against their plain versions (on the whole system, on the
+first PREFIX columns at PREFIX_SHAPES) and against the band.
 A line near the end is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -58,6 +76,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -103,6 +122,37 @@ IID_K, IID_Q, IID_M = 2000, 10_000, 1000
 # small scattered-IID model of phase 8
 SCATTER_SMALL_REF = {"mode": (1.8031526021, 3.6902232481),
                      "lognormconst": -3539.5858495984}
+# the multi-term banded slice: K1-K5 at the shapes the JAX package sends
+# to its chunked kernels K1c-K5c, (d, bw, q): tools/chunked_onchip_check.py's
+# two, the merged headline's, and the corners of the domain (bw <= 125,
+# q <= 512, and a tail past 1024 threads). The plain versions run on the
+# whole system, except at PREFIX_SHAPES, where one of them would take more
+# than ~30 s on the card (there the plain K4 takes ~8.6 s on 4,096
+# columns on an H100's host): there they run on the first PREFIX columns
+# (a Cholesky prefix depends only on its prefix)
+CHUNKED_SHAPES = ((16000, 13, 300), (12000, 48, 300), (14098, 34, 3),
+                  (16384, 125, 512), (16384, 8, 481), (16384, 34, 1100))
+MERGED_SHAPE = (14098, 34, 3)
+PREFIX_SHAPES = ((16384, 125, 512),)
+PREFIX = 4096
+CHUNKED = {                      # port kernel -> its chunked TPU kernel
+    "band_factor": ("band_factor_chunked",
+                    "bayesgp_tpu/linalg/band_kernels.py:466"),
+    "band_fwd_solve": ("band_fwd_solve_chunked",
+                       "bayesgp_tpu/linalg/band_kernels.py:508"),
+    "band_bwd_solve": ("band_bwd_solve_chunked",
+                       "bayesgp_tpu/linalg/band_kernels.py:541"),
+    "band_bwd_multi": ("band_bwd_multi_chunked",
+                       "bayesgp_tpu/linalg/band_kernels.py:575"),
+    "band_takahashi": ("band_takahashi_chunked",
+                       "bayesgp_tpu/linalg/band_kernels.py:612"),
+}
+REPLACES.update(CHUNKED.values())
+# the merged problem of tests/test_iid_band.py (n = 600, IWP2 k = 12, 30
+# x-clustered levels, a lazy IID term), AGHQ k = 3: CPU-f64 values of the
+# JAX package's host path
+MERGED_SMALL_REF = {"mode": (0.96162838, 2.72002588),
+                    "lognormconst": -1093.3009974334}
 
 
 T_START = time.perf_counter()
@@ -551,8 +601,12 @@ def phase_headline(tbg, bk, dev):
     mode, H = float(fit.mod.mode[0]), float(fit.mod.hessian[0, 0])
     lnc = float(fit.mod.lognormconst)
     log(f"  fit 1: {wall1:.3f} s, fit 2: {wall2:.3f} s (wall, host clock)")
-    profile_run("fit 3", lambda: tbg.model_fit(FORMULA.format(k=K_KNOTS),
-                                               **kw))
+    # one evaluation, not a whole fit: a fit's trace (~130,000 device
+    # operations) took over a minute of the script's time limit to read
+    be = fit.mod.backend
+    th = torch.tensor(fit.mod.mode, dtype=torch.float64, device=dev)
+    profile_run("one Laplace evaluation with its gradient, cold start, "
+                "headline", lambda: be.value_and_grad(th, be.init_state()))
     log(f"  mode {mode:.6f}, H {H:.4f}, lognormconst {lnc:.6f}, "
         f"node nlls {np.round(fit.mod.lognll, 4).tolist()}")
     log(f"  fit 2: mode {float(fit2.mod.mode[0]):.6f}, lognormconst "
@@ -655,17 +709,28 @@ def phase_replicates(reps, batched, bb, be, dev):
         bb.reset_launches()
         (modes, lncs), w1 = timed(reps.replicate_fits_packed, be, ys[:R], k=4)
         counts = dict(bb.launches)
-        (modes2, lncs2), w2 = timed(reps.replicate_fits_packed, be, ys[:R],
-                                    k=4)
-        per_fit[f"packed R={R}"] = w2 / R
-        log(f"  packed R={R}: call 1 {w1:.3f} s, call 2 {w2:.3f} s (wall, "
-            f"host clock), {w2 / R:.4f} s per fit; launches {counts}")
+        if R == 16:
+            # the repeat check at R = 16 only: a second R = 64 call took
+            # ~25 s of the script's time limit
+            (modes2, lncs2), w2 = timed(reps.replicate_fits_packed, be,
+                                        ys[:R], k=4)
+            require(np.array_equal(modes, modes2)
+                    and np.array_equal(lncs, lncs2),
+                    f"packed R={R}: the second call repeats the first")
+            per_fit[f"packed R={R}"] = w2 / R
+            log(f"  packed R={R}: call 1 {w1:.3f} s, call 2 {w2:.3f} s "
+                f"(wall, host clock), {w2 / R:.4f} s per fit (call 2); "
+                f"launches {counts}")
+        else:
+            # one call only: its rate includes the first call's set-up
+            per_fit[f"packed R={R} (first call)"] = w1 / R
+            log(f"  packed R={R}: one call {w1:.3f} s (wall, host clock), "
+                f"{w1 / R:.4f} s per fit (first call, set-up included); "
+                f"launches {counts}")
         log(f"    modes: first 4 {np.round(modes[:4], 4).tolist()}, range "
             f"[{modes.min():.4f}, {modes.max():.4f}]")
         require(np.all(np.isfinite(modes)) and np.all(np.isfinite(lncs)),
                 f"finite modes and lognormconsts, packed R={R}")
-        require(np.array_equal(modes, modes2) and np.array_equal(lncs, lncs2),
-                f"packed R={R}: the second call repeats the first")
         missing = [k for k, v in counts.items() if v <= 0]
         require(not missing, f"packed R={R} launched every batched kernel: "
                              f"{missing}")
@@ -995,14 +1060,461 @@ def phase_scatter_fixed_point(cd, fit):
     for key in out["kernels"]:
         check_close(f"fixed point {key}", out["kernels"][key],
                     out["plain"][key], rtol=1e-9)
-    state = (V0, u0, t0)
-    mode = np.asarray(fit.mod.mode)
-    Hk, Hp = be.hess(mode, state), plain.hess(mode, state)
-    log(f"  outer FD Hessian at the mode (h=1e-4, warm from the top node): "
-        f"kernels {np.round(Hk, 6).tolist()}, plain "
-        f"{np.round(Hp, 6).tolist()}; the fit's own "
+    # the kernel engine's outer FD Hessian only: the plain engine's took
+    # two minutes of the script's time limit, and the two engines' agree
+    # bit for bit at the fixed point above
+    Hk = be.hess(np.asarray(fit.mod.mode), (V0, u0, t0))
+    log(f"  outer FD Hessian at the mode (h=1e-4, warm from the top node, "
+        f"kernel engine): {np.round(Hk, 6).tolist()}; the fit's own "
         f"{np.round(fit.mod.hessian, 6).tolist()}")
     return be, theta
+
+
+# -- the multi-term banded slice ----------------------------------------
+
+def dominant_band(dev, d, bw, q, seed):
+    """Seeded diagonally dominant SPD band (d, bw+1) with unit diagonal
+    (off-diagonals c / o * U(-1, 1), rows summing under 0.9) and a tail
+    block C (d, q), on the card: a factor at any size without a dense
+    matrix."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = 0.45 / sum(1.0 / o for o in range(1, bw + 1)) if bw else 0.0
+    o = torch.arange(bw + 1, device=dev, dtype=torch.float64)
+    band = (c / torch.clamp(o, min=1.0)) * (
+        2.0 * torch.rand((d, bw + 1), generator=g, device=dev,
+                         dtype=torch.float64) - 1.0)
+    band[:, 0] = 1.0
+    for k in range(1, bw + 1):
+        band[d - k:, k] = 0.0
+    C = 0.1 * torch.randn((d, q), generator=g, device=dev,
+                          dtype=torch.float64)
+    return band.contiguous(), C
+
+
+def band_sym_mv(band, X):
+    """A X for the symmetric matrix of a (d, bw+1) lower band."""
+    d, W = band.shape
+    Y = band[:, :1] * X
+    for o in range(1, W):
+        Y[o:] += band[:d - o, o:o + 1] * X[:d - o]
+        Y[:d - o] += band[:d - o, o:o + 1] * X[o:]
+    return Y
+
+
+def lower_mv(L, X, trans=False):
+    """L X (or L^T X) for a (d, bw+1) lower band factor L."""
+    d, W = L.shape
+    Y = L[:, :1] * X
+    for o in range(1, W):
+        if trans:
+            Y[:d - o] += L[:d - o, o:o + 1] * X[o:]
+        else:
+            Y[o:] += L[:d - o, o:o + 1] * X[:d - o]
+    return Y
+
+
+def rel_residual(name, got, want, tol=1e-10):
+    err = float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                1e-300)
+    log(f"  {name}: relative residual {err:.3e} (tolerance {tol:g})")
+    require(err <= tol, f"{name}: residual")
+
+
+def timed_call(fn):
+    """(result, milliseconds) of one call, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def band_work(d, bw, q, M):
+    """(bytes, flops) of K1-K5 at (d, bw, q) with M draws: each input read
+    once, each output written once; a column of K1 takes its pivot (2 bw
+    flops), its band entries (bw (bw + 1)) and its q tail entries (2 bw
+    each)."""
+    W, f8 = bw + 1, 8
+    return {
+        "band_factor": (f8 * d * (2 * W + 2 * q + 1) + f8,
+                        d * (2 * bw + 3 + bw * (bw + 1) + q * (2 * bw + 1))),
+        "band_fwd_solve": (f8 * (d * W + d + 2 * d), d * (2 * bw + 1)),
+        "band_bwd_solve": (f8 * (d * W + d + 2 * d), d * (2 * bw + 1)),
+        "band_takahashi": (f8 * (2 * d * W + d),
+                           d * (2 * bw * bw + 2 * bw + 2)),
+        "band_bwd_multi": (f8 * (d * W + d + 2 * d * M),
+                           d * M * (2 * bw + 1)),
+    }
+
+
+def check_band_shape(bk, dev, d, bw, q, seed, m):
+    """K1-K5 at (d, bw, q) on the card: the full-size outputs held to
+    residuals against the band, the kernels against their plain versions
+    bit for bit on the first m columns (all d at m = d), and the
+    full-size forward outputs' first rows equal to the prefix's. Returns
+    per-kernel rows (err, ms, plain_ms, rows the plain version ran on)."""
+    tag = f"d={d} bw={bw} q={q}"
+    band, C = dominant_band(dev, d, bw, q, seed)
+    if q > 1:                        # a column past K1's tile meets the cap
+        C[:, -1] *= 1e10
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    M = 1000
+    B = torch.randn((d, 1), generator=g, device=dev, dtype=torch.float64)
+    Z = torch.randn((d, M), generator=g, device=dev, dtype=torch.float64)
+    tile = bk._library().bgt_band_factor_tile(bw, q)
+    (L, rinv, Y, hld), k1_ms = timed_call(lambda: bk.band_factor(band, C))
+    log(f"  {tag}: K1 computes {tile} tail columns in its block, K2 the "
+        f"other {q - tile}")
+    v = torch.randn((d, 2), generator=g, device=dev, dtype=torch.float64)
+    rel_residual(f"K1 L L^T v = A v, {tag}",
+                 lower_mv(L, lower_mv(L, v, trans=True)), band_sym_mv(band, v))
+    if q:
+        big = Y.abs() >= bk.Y_CAP
+        log(f"  K1 Y at the cap |Y| = 1e8: {int(big.sum())} entries")
+        keep = ~big.any(0)
+        rel_residual(f"K1 L Y = C, {tag}", lower_mv(L, Y[:, keep]),
+                     C[:, keep])
+    X2 = bk.band_fwd_solve(L, rinv, B)
+    X3 = bk.band_bwd_solve(L, rinv, B)
+    X5 = bk.band_bwd_multi(L, rinv, Z)
+    Zt = bk.band_takahashi(L, rinv)
+    rel_residual(f"K2 L x = b, {tag}", lower_mv(L, X2), B)
+    rel_residual(f"K3 L^T x = b, {tag}", lower_mv(L, X3, trans=True), B)
+    rel_residual(f"K5 L^T X = Z, {tag}", lower_mv(L, X5, trans=True), Z)
+    for j in (0, d // 2, d - 1):     # columns of A^{-1} by two solves
+        e = torch.zeros((d, 1), device=dev, dtype=torch.float64)
+        e[j] = 1.0
+        col = bk.band_bwd_solve(L, rinv, bk.band_fwd_solve(L, rinv, e))[:, 0]
+        n_o = min(bw, d - 1 - j)
+        rel_residual(f"K4 column {j} of A^-1, {tag}",
+                     Zt[j, :n_o + 1], col[j:j + n_o + 1], tol=1e-9)
+
+    bp, Cp = band[:m].contiguous(), C[:m].contiguous()
+    Bp, Zp = B[:m].contiguous(), Z[:m].contiguous()
+    Lk, rk, Yk, hk = bk.band_factor(bp, Cp)
+    (Lp, rp, Yp, hp), t1 = timed_call(lambda: bk.band_factor_plain(bp, Cp))
+    rows = {"band_factor": dict(err=max(
+        check_close(f"K1 L {tag} rows {m}", Lk, Lp),
+        check_close(f"K1 rinv {tag} rows {m}", rk, rp),
+        check_close(f"K1 Y {tag} rows {m}", Yk, Yp),
+        check_close(f"K1 hld {tag} rows {m}", hk, hp)), plain_ms=t1)}
+    same = torch.equal(Lk, Lp) and torch.equal(rk, rp) and torch.equal(Yk, Yp)
+    log(f"  K1 {tag} rows {m}: bit for bit {'yes' if same else 'no'}")
+    require(same, f"K1 {tag}: kernel equals plain bit for bit")
+    # a row of L past m - bw reaches columns the prefix does not hold
+    check_equal(f"K1 {tag}: the full factor's first rows equal the "
+                "prefix's", torch.cat([L[:m - bw].reshape(-1), rinv[:m],
+                                       Y[:m].reshape(-1)]),
+                torch.cat([Lk[:m - bw].reshape(-1), rk, Yk.reshape(-1)]))
+    for name, fn, plain, rhs in (
+            ("band_fwd_solve", bk.band_fwd_solve, bk.band_fwd_solve_plain,
+             Bp),
+            ("band_bwd_solve", bk.band_bwd_solve, bk.band_bwd_solve_plain,
+             Bp),
+            ("band_bwd_multi", bk.band_bwd_multi, bk.band_bwd_multi_plain,
+             Zp)):
+        got = fn(Lk, rk, rhs)
+        want, tp = timed_call(lambda: plain(Lk, rk, rhs))
+        rows[name] = dict(err=check_close(f"{name} {tag} rows {m}", got,
+                                          want), plain_ms=tp)
+        check_equal(f"{name} {tag} rows {m}", got, want)
+    check_equal(f"K2 {tag}: the full solve's first {m} rows equal the "
+                "prefix's", X2[:m], bk.band_fwd_solve(Lk, rk, Bp))
+    got = bk.band_takahashi(Lk, rk)
+    want, tp = timed_call(lambda: bk.band_takahashi_plain(Lk, rk))
+    rows["band_takahashi"] = dict(
+        err=check_close(f"band_takahashi {tag} rows {m}", got, want),
+        plain_ms=tp)
+    check_equal(f"band_takahashi {tag} rows {m}", got, want)
+
+    n = 3 if d * bw > 1e6 else 10
+    ms = {"band_factor": cuda_ms(lambda: bk.band_factor(band, C), n=n),
+          "band_fwd_solve": cuda_ms(lambda: bk.band_fwd_solve(L, rinv, B),
+                                    n=n),
+          "band_bwd_solve": cuda_ms(lambda: bk.band_bwd_solve(L, rinv, B),
+                                    n=n),
+          "band_bwd_multi": cuda_ms(lambda: bk.band_bwd_multi(L, rinv, Z),
+                                    n=n),
+          "band_takahashi": cuda_ms(lambda: bk.band_takahashi(L, rinv), n=n)}
+    work = band_work(d, bw, q, M)
+    for name, r in rows.items():
+        r.update(ms=ms[name], plain_rows=m, shape=(d, bw, q))
+        r["bound_ms"], r["bound_by"] = bound(*work[name])
+    log(f"  {tag}: ms a launch " + ", ".join(
+        f"{k} {v:.3f}" for k, v in ms.items()) + f" (K1 first call "
+        f"{k1_ms:.1f} ms); plain versions on {m} rows, ms: " + ", ".join(
+        f"{k} {r['plain_ms']:.0f}" for k, r in rows.items()))
+    return rows, (band, C, L, rinv, B, Z)
+
+
+def library_times(dev, band, C, L, B, Z):
+    """One PyTorch call on the dense equivalent of each band operation:
+    torch.linalg.cholesky of the arrowhead [[A, C], [C^T, I + C^T C]],
+    solve_triangular on the dense factor, cholesky_inverse."""
+    d, W = band.shape
+    q = C.shape[1]
+    A = torch.zeros((d, d), dtype=torch.float64, device=dev)
+    Ld = torch.zeros_like(A)
+    for o in range(W):
+        A += torch.diag(band[:d - o, o], -o)
+        Ld += torch.diag(L[:d - o, o], -o)
+    A = A + A.tril(-1).T
+    Cs = 1e-3 * C / torch.clamp(C.abs().max(0).values, min=1.0)
+    H = torch.cat([torch.cat([A, Cs], 1), torch.cat(
+        [Cs.T, torch.eye(q, dtype=torch.float64, device=dev)
+         + Cs.T @ Cs], 1)], 0)
+    del A
+    out = {"band_factor": cuda_ms(lambda: torch.linalg.cholesky(H), n=3),
+           "band_fwd_solve": cuda_ms(lambda: torch.linalg.solve_triangular(
+               Ld, B, upper=False), n=3),
+           "band_bwd_solve": cuda_ms(lambda: torch.linalg.solve_triangular(
+               Ld.T, B, upper=True), n=3),
+           "band_bwd_multi": cuda_ms(lambda: torch.linalg.solve_triangular(
+               Ld.T, Z, upper=True), n=3),
+           "band_takahashi": cuda_ms(lambda: torch.cholesky_inverse(Ld),
+                                     n=3)}
+    del H, Ld
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_chunked_kernels(bk, dev):
+    """K1-K5 at the chunked kernels' shapes; rows at the merged shape."""
+    log("== phase 2 (chunked shapes): K1-K5 at (d, bw, q) in "
+        f"{CHUNKED_SHAPES}, plain versions on the whole system, on the "
+        f"first {PREFIX} columns at {PREFIX_SHAPES}")
+    by_shape = {}
+    merged = None
+    for i, (d, bw, q) in enumerate(CHUNKED_SHAPES):
+        m = min(d, PREFIX) if (d, bw, q) in PREFIX_SHAPES else d
+        rows, arrays = check_band_shape(bk, dev, d, bw, q, seed=20 + i, m=m)
+        for name, r in rows.items():
+            by_shape.setdefault(name, {})[f"{d}x{bw}x{q}"] = r["ms"]
+        if (d, bw, q) == MERGED_SHAPE:
+            merged = rows
+            band, C, L, _, B, Z = arrays
+            lib = library_times(dev, band, C, L, B, Z)
+            del band, C, L, B, Z
+        del arrays
+    for name, r in merged.items():
+        r["library_ms"] = lib[name]
+        r["ms_by_shape"] = by_shape[name]
+        log(f"  {CHUNKED[name][0]} at {MERGED_SHAPE}: kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, library "
+            f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
+    # a band wider than the kernels take raises in the wrapper
+    try:
+        bk.band_factor(torch.ones((8, bk.BW_MAX + 2), dtype=torch.float64,
+                                  device=dev),
+                       torch.zeros((8, 1), dtype=torch.float64, device=dev))
+    except ValueError as e:
+        log(f"  bw = {bk.BW_MAX + 1} refused: {e}")
+    else:
+        require(False, "a band wider than BW_MAX is refused")
+    return {CHUNKED[name][0]: r for name, r in merged.items()}
+
+
+def merged_small_data(n=600, n_lev=30, seed=0):
+    """tests/test_iid_band.py's merged problem (levels clustered in x)."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(0.0, 10.0, n))
+    g = np.floor(x * (n_lev / 10.0)).astype(float)
+    u_true = 0.3 * rng.normal(size=int(g.max()) + 1)
+    y = rng.poisson(np.exp(0.5 * np.sin(x) + u_true[g.astype(int)]
+                           + 1.0)).astype(float)
+    return {"x": x, "g": g, "y": y}
+
+
+def merged_small_terms(terms, data):
+    """An IWP2 k = 12 smooth and the 30-level IID term kept lazy (no dense
+    design), as the banded engine keeps an IID term of many levels."""
+    iwp = terms.build_iwp_term("x", data["x"], order=2, k=12,
+                               materialize_B=False)
+    iid = dataclasses.replace(terms.build_iid_term("g", data["g"]), B=None,
+                              P=None)
+    return [iwp, iid]
+
+
+def phase_merged_small(tbg, terms, dev):
+    log("== phase 13: small merged-IID fit (n=600, IWP2 k=12, 30 levels in "
+        "the band, AGHQ k=3) against the JAX package's CPU-f64 host path")
+    data = merged_small_data()
+    t0 = time.perf_counter()
+    fit = tbg.model_fit(data=data, response="y",
+                        terms=merged_small_terms(terms, data),
+                        family="Poisson", engine="banded", aghq_k=3, M=500,
+                        seed=0, device=dev)
+    be = fit.mod.backend
+    mode, lnc = np.asarray(fit.mod.mode), float(fit.mod.lognormconst)
+    ref = MERGED_SMALL_REF
+    dm = float(np.abs(mode - np.asarray(ref["mode"])).max())
+    dl = abs(lnc - ref["lognormconst"])
+    log(f"  {time.perf_counter() - t0:.2f} s: d={be.d} dpad={be.dpad} "
+        f"bw={be.Wl - 1} q={be.q}; mode {np.round(mode, 8)} (ref "
+        f"{ref['mode']}), lognormconst {lnc:.10f} (ref "
+        f"{ref['lognormconst']}); max|diff| mode {dm:.2e}, lognormconst "
+        f"{dl:.2e} (tolerance 1e-5)")
+    require(dm < 1e-5 and dl < 1e-5, "small merged fit matches the CPU-f64 "
+            "reference")
+    require(fit.samps.shape == (11 + 30 + 1 + 1, 500)
+            and np.all(np.isfinite(fit.samps)), "small merged draws")
+
+
+def phase_merged_headline(tbg, bk, cd, dev, scatter_fit):
+    log(f"== phase 14: merged-IID headline fit (n={N_OBS}, IWP3 k={IID_K}, "
+        f"q={IID_Q} x-clustered levels merged into the band, Poisson, AGHQ "
+        f"k=3, M={IID_M}, engine='auto')")
+    from bayesgp_torch.fast import banded
+    kw = dict(data=bigiid_data(), family="Poisson", aghq_k=3, M=IID_M,
+              seed=0, device=dev)
+    fml = IID_FORMULA.format(p=3, k=IID_K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bk.reset_launches()
+    cd.reset_launches()
+    with CountCalls(banded.BandedBackend, "value_and_grad",
+                    "laplace_eval_full", "newton_step") as calls, \
+            warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        fit = tbg.model_fit(fml, **kw)
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+    launches = dict(bk.launches)
+    dense = dict(cd.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    fit2 = tbg.model_fit(fml, **kw)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    m, be = fit.mod, fit.mod.backend
+    log(f"  backend {type(be).__name__}: d={be.d} (driver {be.d_drv}, "
+        f"period {be.G}), dpad={be.dpad}, bw={be.Wl - 1}, q={be.q}")
+    log(f"  fit 1: {wall1:.3f} s, fit 2: {wall2:.3f} s (wall, host clock); "
+        f"peak device memory {peak:.2f} GiB")
+    log(f"  mode {np.round(m.mode, 6).tolist()}, H "
+        f"{np.round(m.hessian, 4).tolist()}, lognormconst "
+        f"{m.lognormconst:.6f}; node nlls {np.round(m.lognll, 4).tolist()}")
+    log(f"  launches in fit 1: {launches}, dense {dense}; Laplace "
+        f"evaluations and Newton steps {calls.calls}")
+    log(f"  warnings of fit 1: {[str(w.message) for w in warned]}")
+    sm = scatter_fit.mod
+    dmode = np.abs(np.asarray(m.mode) - np.asarray(sm.mode))
+    dlnc = abs(m.lognormconst - sm.lognormconst)
+    log(f"  against phase 9's scatter_iid fit of the same data (recorded, "
+        f"not asserted: both are noisy): mode {np.round(sm.mode, 6).tolist()}"
+        f", lognormconst {sm.lognormconst:.6f}; |diff| mode "
+        f"{np.round(dmode, 6).tolist()}, lognormconst {dlnc:.6f}"
+        + (" -- above 0.1 / 1 nat" if dmode.max() > 0.1 or dlnc > 1 else ""))
+    sbe = sm.backend
+    for th in (np.asarray(m.mode), np.asarray(sm.mode)):
+        vm, gm, _ = be.value_and_grad(th, be.init_state())
+        vs, gs, _ = sbe.value_and_grad(th, sbe.init_state())
+        log(f"  Laplace nll and gradient at {np.round(th, 6).tolist()}, "
+            f"cold: merged {float(vm):.6f} {np.round(gm.cpu().numpy(), 4)}"
+            f", scatter_iid {float(vs):.6f} "
+            f"{np.round(gs.cpu().numpy(), 4)}")
+        gate_diagnostic(be, th)
+    require((be.d, be.Wl - 1, be.q) == (13993, 34, 3)
+            and be.dpad == MERGED_SHAPE[0], "the merged layout")
+    require(np.all(np.isfinite(m.mode)) and math.isfinite(m.lognormconst),
+            "finite merged mode and lognormconst")
+    require(fit.samps.shape == (IID_K - 1 + IID_Q + 3, IID_M)
+            and np.all(np.isfinite(fit.samps)), "merged draws")
+    missing = [k for k, v in launches.items() if v <= 0]
+    require(not missing, f"every band kernel launched by the fit: {missing}")
+    require(np.array_equal(m.mode, fit2.mod.mode)
+            and m.lognormconst == fit2.mod.lognormconst
+            and np.array_equal(fit.samps, fit2.samps),
+            "the second merged fit repeats the first bit for bit")
+    return fit, launches, wall1, wall2
+
+
+def gate_diagnostic(be, th):
+    """The half-log-det backward's sick-factor gate (|H^{-1}| >= 1e12 on
+    the band's selected entries or the tail block A = Hb^{-1} C S^{-1}
+    drops the log-det's cotangents) at the cold inner mode of theta: the
+    smallest pivot, the largest entry it tests, and the theta gradient
+    with the gate off."""
+    from bayesgp_torch.linalg import band_arrow
+    _, _, (V, t) = be.value_and_grad(th, be.init_state())
+    tht = torch.tensor(th, dtype=torch.float64, device=be.device)
+    with torch.no_grad():
+        af = be.hessian_factor(V, t, tht)[0]
+        peak = float(be.engine.gate_peak(af))
+    saved = band_arrow.SICK_INV
+    band_arrow.SICK_INV = math.inf
+    try:
+        _, g_off, _ = be.value_and_grad(th, be.init_state())
+    finally:
+        band_arrow.SICK_INV = saved
+    log(f"    gate: min pivot {float((af.rinv ** -2).min()):.3e}, max|H^-1| "
+        f"on the tested entries {peak:.3e} (closed at {saved:g}); theta "
+        f"gradient with the gate off {np.round(g_off.cpu().numpy(), 4)}")
+
+
+def phase_merged_fixed_point(tbg, bk, dev):
+    log("== phase 15: kernel engine against plain engine at a fixed point "
+        "of a reduced merged model (n=5000, IWP3 k=100, q=600)")
+    fit = tbg.model_fit(IID_FORMULA.format(p=3, k=100),
+                        data=bigiid_data(n=5000, q=600), family="Poisson",
+                        aghq_k=3, M=10, seed=0, device=dev)
+    be = fit.mod.backend
+    j = int(np.argmax(fit.mod.logpost_nodes + fit.mod.logw))
+    V0, t0, _ = fit.mod.states[j]
+    theta = torch.tensor(fit.mod.nodes[j], dtype=torch.float64,
+                         device=be.device)
+    log(f"  d={be.d} dpad={be.dpad} bw={be.Wl - 1} q={be.q}; top node "
+        f"{np.round(fit.mod.nodes[j], 6).tolist()}")
+    plain = dataclasses.replace(be, engine=be.engine.with_ops(bk.PLAIN))
+    out = {}
+    for name, b in (("kernels", be), ("plain", plain)):
+        tt = time.perf_counter()
+        args = [x.clone().requires_grad_(True) for x in (V0, t0, theta)]
+        F = b._laplace_value(*args)
+        gV, gt, gth = torch.autograd.grad(F, args)
+        with torch.no_grad():
+            factor = b.hessian_factor(V0, t0, theta)
+            zV, zt = b.solve_H(factor, *b.grad_W(V0, t0, theta))
+            nV, nt, _ = b.newton_step(V0, t0, theta)
+        nll, g, _ = b.value_and_grad(theta + 0.05, (V0, t0))
+        out[name] = dict(F=F.detach(), gV=gV, gt=gt, gth=gth,
+                         hld=b.half_logdet_H(factor), zV=zV, zt=zt, nV=nV,
+                         nt=nt, nll=nll, g=g)
+        log(f"  {name}: {time.perf_counter() - tt:.2f} s")
+    for key in out["kernels"]:
+        check_close(f"fixed point {key}", out["kernels"][key],
+                    out["plain"][key], rtol=1e-9)
+    return be, theta
+
+
+def phase_tail_cell(tbg, bk, cd, dev):
+    log("== phase 16: tail-term cell: bench_scattered_iid's engine='banded' "
+        "q=512 point (n=5e4, IWP3 k=500, 512 scattered levels in a 515-wide "
+        "dense tail, Poisson, AGHQ k=3, M=500)")
+    bk.reset_launches()
+    cd.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit = tbg.model_fit(IID_FORMULA.format(p=3, k=500),
+                        data=scattered_data(q=512), family="Poisson",
+                        engine="banded", aghq_k=3, M=500, seed=0, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m, be = fit.mod, fit.mod.backend
+    launches = {**bk.launches, **cd.launches}
+    log(f"  {wall:.3f} s (wall): {type(be).__name__} d={be.d} bw="
+        f"{be.Wl - 1} q={be.q} (dense tail route: {be.engine.dense_tail}); "
+        f"mode {np.round(m.mode, 6).tolist()}, lognormconst "
+        f"{m.lognormconst:.6f}; launches {launches}")
+    require(be.q == 515 and be.engine.dense_tail, "the 515-wide dense tail")
+    require(np.all(np.isfinite(m.mode)) and np.all(np.isfinite(fit.samps))
+            and fit.samps.shape == (499 + 512 + 3, 500),
+            "finite tail-term fit and draws")
+    require(all(v > 0 for v in cd.launches.values()),
+            f"K6 and K7 launched by the tail-term fit: {cd.launches}")
+    return wall, launches
 
 
 def main():
@@ -1022,6 +1534,7 @@ def main():
     from bayesgp_torch.fast import scatter_iid as si
     from bayesgp_torch.linalg import chol_dense as cd
     from bayesgp_torch.parallel import replicates as reps
+    from bayesgp_torch import terms
 
     dev = torch.device("cuda:0")
     card = gpu_line()
@@ -1040,6 +1553,7 @@ def main():
     rows = phase_kernels(bk, dev)
     rows.update(phase_batched_kernels(bk, bb, dev))
     rows.update(phase_dense_kernels(cd, dev))
+    rows.update(phase_chunked_kernels(bk, dev))
     small = phase_small_fit(tbg, dev)
     phase_small_replicates(reps, small)
     fit, launches, wall1, wall2 = phase_headline(tbg, bk, dev)
@@ -1059,6 +1573,18 @@ def main():
     profile_run("one Laplace evaluation with its gradient, cold start, "
                 "scattered-IID headline",
                 lambda: ibe.value_and_grad(itheta, ibe.init_state()))
+    phase_merged_small(tbg, terms, dev)
+    mfit, mlaunches, mwall1, mwall2 = phase_merged_headline(tbg, bk, cd, dev,
+                                                            ifit)
+    launches.update({CHUNKED[k][0]: v for k, v in mlaunches.items()})
+    phase_merged_fixed_point(tbg, bk, dev)
+    twall, tail_launches = phase_tail_cell(tbg, bk, cd, dev)
+    log("== phase 17: profiled merged-IID Laplace evaluation")
+    mbe = mfit.mod.backend
+    mtheta = torch.tensor(mfit.mod.mode, dtype=torch.float64, device=dev)
+    profile_run("one Laplace evaluation with its gradient, cold start, "
+                "merged-IID headline",
+                lambda: mbe.value_and_grad(mtheta, mbe.init_state()))
 
     kernels = []
     for name, r in rows.items():
@@ -1073,11 +1599,18 @@ def main():
             row["ms_by_systems"] = r["ms_by_systems"]
         if "r" in r:            # K7: timed at this many right-hand sides
             row["r"] = r["r"]
+        if "shape" in r:        # K1c-K5c: K1-K5 at the merged shape
+            row.update(shape=r["shape"], plain_rows=r["plain_rows"],
+                       ms_by_shape=r["ms_by_shape"])
         kernels.append(row)
     log(f"headline fit wall s: first {wall1:.3f}, second {wall2:.3f}")
     log(f"replicate fits, wall s per fit: {per_fit}")
     log(f"scattered-IID headline fit wall s: first {iwall1:.3f}, second "
         f"{iwall2:.3f}; scattered q=1e4 fit {swall:.3f}")
+    log(f"merged-IID headline fit wall s: first {mwall1:.3f}, second "
+        f"{mwall2:.3f}; tail-term cell {twall:.3f} (launches "
+        f"{tail_launches})")
+    log(f"script wall s: {time.perf_counter() - T_START:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

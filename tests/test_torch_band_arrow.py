@@ -5,16 +5,18 @@ and dense numpy, on the same numpy arrowhead systems.
 Tolerances: half log-det and solves 1e-10 (both sides f64 or
 double-float); draws 1e-10 against dense f64, 1e-4 against the f32
 Pallas multi-RHS kernel; the half log-det gradient 1e-9 against the
-block engine's f64 autodiff gradient.
+block engine's f64 autodiff gradient. The JAX values of a case come from
+one jitted program (_jax_quick.quick_jit).
 """
 import numpy as np
 import pytest
 import jax
-import jax.numpy as jnp
 import torch
 
 from bayesgp_tpu.linalg import band_arrow as jba
 from bayesgp_torch.linalg.band_arrow import BandArrowEngine
+
+from _jax_quick import quick_jit
 
 torch.set_num_threads(1)
 
@@ -45,32 +47,38 @@ def test_engine_matches_pallas_block_and_dense(q):
     band, C, Hd, Hfull = _arrow_problem(rng, d, bw, max(q, 1))
     if q == 0:
         C, Hd, Hfull = np.zeros((d, 0)), np.zeros((0, 0)), Hfull[:d, :d]
+    rb, rd = rng.normal(size=d), rng.normal(size=q)
+    M = 32
+    zbn, zdn = rng.normal(size=(d, M)), rng.normal(size=(q, M))
     eng = BandArrowEngine(d, bw, q)
     eng_p = jba.make_engine(d, bw, q, s, force="pallas_interpret")
     eng_b = jba.make_engine(d, bw, q, s, force="block")
+
+    def jax_ref(band, C, Hd, rb, rd, zbn, zdn):
+        fp = eng_p.factor(band, C, Hd)
+        return (eng_p.half_logdet(fp), eng_p.solve(fp, rb, rd)[0],
+                eng_p.sample_multi(fp, zbn, zdn)[0],
+                jax.grad(lambda *a: eng_b.arrow_half_logdet(*a),
+                         argnums=(0, 1, 2))(band, C, Hd))
+    hld_p, zbp, xbp, g_b = quick_jit(jax_ref)(band, C, Hd, rb, rd, zbn, zdn)
     targs = (torch.tensor(band.T.copy()), torch.tensor(C), torch.tensor(Hd))
-    jargs = (jnp.asarray(band), jnp.asarray(C), jnp.asarray(Hd))
-    f, fp = eng.factor(*targs), eng_p.factor(*jargs)
+    f = eng.factor(*targs)
 
     hld = float(eng.half_logdet(f))
     hld_ref = 0.5 * np.linalg.slogdet(Hfull)[1]
     assert abs(hld - hld_ref) < 1e-10 * max(1.0, abs(hld_ref))
-    assert abs(hld - float(eng_p.half_logdet(fp))) < 1e-10
+    assert abs(hld - float(hld_p)) < 1e-10
 
-    rb, rd = rng.normal(size=d), rng.normal(size=q)
     zb, zd = eng.solve(f, torch.tensor(rb), torch.tensor(rd))
     zref = np.linalg.solve(Hfull, np.concatenate([rb, rd]))
     np.testing.assert_allclose(zb.numpy(), zref[:d], rtol=1e-10,
                                atol=1e-12)
     np.testing.assert_allclose(zd.numpy(), zref[d:], rtol=1e-10,
                                atol=1e-12)
-    zbp, zdp = eng_p.solve(fp, jnp.asarray(rb), jnp.asarray(rd))
     np.testing.assert_allclose(zb.numpy(), np.asarray(zbp), rtol=1e-10,
                                atol=1e-12)
 
     # draws x = L_full^{-T} z with the same numpy noise
-    M = 32
-    zbn, zdn = rng.normal(size=(d, M)), rng.normal(size=(q, M))
     xb, xd = eng.sample_multi(f, torch.tensor(zbn), torch.tensor(zdn))
     Lfull = np.linalg.cholesky(Hfull)
     xref = np.linalg.solve(Lfull.T, np.concatenate([zbn, zdn]))
@@ -78,7 +86,6 @@ def test_engine_matches_pallas_block_and_dense(q):
                                atol=1e-12)
     np.testing.assert_allclose(xd.numpy(), xref[d:], rtol=1e-10,
                                atol=1e-12)
-    xbp, _ = eng_p.sample_multi(fp, jnp.asarray(zbn), jnp.asarray(zdn))
     np.testing.assert_allclose(xb.numpy(), np.asarray(xbp), rtol=1e-4,
                                atol=1e-4 * np.abs(xref).max())
 
@@ -86,8 +93,6 @@ def test_engine_matches_pallas_block_and_dense(q):
     leaves = [t.clone().requires_grad_(True) for t in targs]
     g = torch.autograd.grad(eng.arrow_half_logdet(*leaves), leaves,
                             allow_unused=True)
-    g_b = jax.grad(lambda *a: eng_b.arrow_half_logdet(*a),
-                   argnums=(0, 1, 2))(*jargs)
     for gt, gb, t in zip(g, g_b, targs):
         gt = np.zeros(t.shape) if gt is None else gt.numpy()
         gb = np.asarray(gb)

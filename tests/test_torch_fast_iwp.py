@@ -4,11 +4,11 @@ packages from the same numpy data.
 
 Tolerances: build arrays rtol 1e-12 (same host numpy arithmetic);
 objective rtol 1e-10; Laplace nll rtol 1e-9 and its theta-gradient
-rtol 1e-7 (both sides converge an f64 inner Newton to ~1e-9).
+rtol 1e-7 (both sides converge an f64 inner Newton to ~1e-9). The JAX
+functions are jitted with _jax_quick.quick_jit.
 """
 import numpy as np
 import pytest
-import jax
 import jax.numpy as jnp
 import torch
 
@@ -19,6 +19,8 @@ from bayesgp_torch import convert
 from bayesgp_torch import terms as tterms
 from bayesgp_torch.model import build as tbuild
 from bayesgp_torch.fast.iwp import build_fast_iwp
+
+from _jax_quick import quick_jit
 
 torch.set_num_threads(1)
 
@@ -73,19 +75,19 @@ def test_build_arrays_match(pair):
 
 def test_neg_log_post_matches(pair):
     jbe, tbe = pair
+    jax_point = quick_jit(lambda V, t, th: (jbe.neg_log_post(V, t, th),
+                                            jbe.grad_W(V, t, th)))
     rng = np.random.default_rng(1)
     for _ in range(3):
         Vp = np.zeros(jbe.dpad)
         Vp[:jbe.d] = rng.normal(0, 0.3, jbe.d)
         tail = rng.normal(0, 0.2, jbe.q)
         theta = rng.normal(0, 0.3, 1)
-        fj = float(jbe.neg_log_post(jnp.asarray(Vp), jnp.asarray(tail),
-                                    jnp.asarray(theta)))
+        fj, gj = jax_point(Vp, tail, theta)
+        fj = float(fj)
         ft = float(tbe.neg_log_post(torch.tensor(Vp), torch.tensor(tail),
                                     torch.tensor(theta)))
         assert np.isclose(ft, fj, rtol=1e-10), (ft, fj)
-        gj = jbe.grad_W(jnp.asarray(Vp), jnp.asarray(tail),
-                        jnp.asarray(theta))
         gt = tbe.grad_W(torch.tensor(Vp), torch.tensor(tail),
                         torch.tensor(theta))
         for a, b in zip(gt, gj):
@@ -112,9 +114,9 @@ def test_convert_backend_gives_same_nll(pair):
     jbe, tbe = pair
     cbe = convert.fast_iwp_from_arrays(_jax_arrays(jbe), term=tbe.term,
                                        device="cpu")
-    nll = jax.jit(jbe.laplace_nll)
+    nll = quick_jit(jbe.laplace_nll)
     for th in THETAS:
-        vj, (Vj, tj) = nll(jnp.asarray([th]))
+        vj, (Vj, tj) = nll(np.asarray([th]))
         vc, _ = cbe.laplace_nll(torch.tensor([th], dtype=torch.float64))
         vt, _ = tbe.laplace_nll(torch.tensor([th], dtype=torch.float64))
         assert np.isclose(float(vc), float(vj), rtol=1e-9)

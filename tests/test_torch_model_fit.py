@@ -13,6 +13,7 @@ import torch
 
 import bayesgp_tpu as jbg
 import bayesgp_torch as tbg
+from bayesgp_torch import api as tapi
 
 torch.set_num_threads(1)
 
@@ -79,14 +80,22 @@ def test_unported_routes_raise():
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         tbg.model_fit(FORMULA, data=data, family="Poisson", method="MCMC",
                       device="cpu")
-    # an IWP smooth plus a large IID term: 'auto' does not pick
-    # scatter_iid (the JAX package tries the multi-term banded engine
-    # first); the Gaussian family's third theta is not on scatter_iid
+    # an IWP smooth plus 600 scattered levels: 'auto' takes the multi-term
+    # banded engine, whose merge refuses scattered levels, and densifies
+    # them into its tail (as the JAX package does; a build, no fit); an
+    # sGP driver is the next route to port; the Gaussian family's third
+    # theta is not on scatter_iid
     n = 1200
     big = dict(_data(n=n), g=np.arange(n) % 600.0)
     iid = "y ~ f(x, model='IWP', order=3, k=20) + f(g, model='IID')"
+    with pytest.warns(UserWarning, match="densifying"):
+        be = tapi._backend(tapi.assemble_model(iid, data=big,
+                                               family="Poisson"),
+                           "auto", torch.device("cpu"))
+    assert [t.size for t in be.tail_terms] == [600]
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tbg.model_fit(iid, data=big, family="Poisson", device="cpu")
+        tbg.model_fit("y ~ f(x, model='sGP', period=50.0, k=10)", data=big,
+                      family="Poisson", engine="banded", device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         tbg.model_fit(iid, data=big, family="Gaussian",
                       engine="scatter_iid", device="cpu")
