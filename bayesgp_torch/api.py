@@ -244,17 +244,22 @@ def _backend(asm, engine, device):
 
 def _warn_sick_gate(backend, mod):
     """Warn when the band engine's sick-factor gate drops the log-det's
-    theta gradient at the returned mode: the optimizer then stopped on
-    the value's explicit gradient alone, and the mode and lognormconst
-    can be off (ROADMAP Queue 3)."""
-    gate_closed = getattr(backend, "gate_closed", None)
-    if gate_closed is None or mod.mode_state is None:
+    theta gradient at the returned mode (a band pivot clamped, the tail
+    factor left its plain route, or H^{-1} is not finite there): the
+    optimizer then stopped on the value's explicit gradient alone, and
+    the mode and lognormconst can be off."""
+    gate_reasons = getattr(backend, "gate_reasons", None)
+    if gate_reasons is None or mod.mode_state is None:
         return
-    if gate_closed(mod.mode, mod.mode_state):
+    why = [what for what, hit in zip(
+        ("a band pivot was clamped", "the tail factor left its plain route",
+         "H^-1 is not finite"), gate_reasons(mod.mode, mod.mode_state))
+        if hit]
+    if why:
         warnings.warn(
-            "the sick-factor gate (|H^-1| >= 1e12) dropped the log-det's "
-            "theta gradient at the mode: the mode and lognormconst may be "
-            "off (ROADMAP Queue 3)", RuntimeWarning, stacklevel=3)
+            "the sick-factor gate dropped the log-det's theta gradient at "
+            f"the mode ({'; '.join(why)}): the mode and lognormconst may "
+            "be off", RuntimeWarning, stacklevel=3)
 
 
 def model_fit(formula=None, data=None, method: str = "aghq",

@@ -11,14 +11,17 @@
 // refused launch reaches the caller. The library is built with
 // -fmad=false: every product is rounded before it is added, as in the
 // plain PyTorch versions beside the wrappers, and each kernel sums in the
-// same order as its plain version, so the two agree bit for bit.
+// same order as its plain version, so the two agree bit for bit. (The
+// solves K2/K3 sum a row nearest-first up to SMALL_BW and farthest-first
+// above it; K5 and the batched K9/K10 nearest-first at every width.)
 //
 // What these replace, and what bounds them on this card
 // ------------------------------------------------------
 // K1 band_factor    replaces bayesgp_tpu/linalg/band_kernels.py:factor_fn
 //                   (_factor_body): banded Cholesky with the pivot clamp
 //                   (|pivot|, 1e-12 floor) and caps (|L| <= 1e3,
-//                   |Y| <= 1e8), fused Y = L^{-1} C and the half log-det.
+//                   |Y| <= 1e8), fused Y = L^{-1} C and the half log-det;
+//                   it also reports whether it clamped a pivot.
 // K2 band_fwd_solve replaces band_kernels.py:fwd_solve_fn (L Y = B).
 // K3 band_bwd_solve replaces band_kernels.py:bwd_solve_fn (L^T X = Y); it
 //                   loops backwards, where the TPU kernel flipped rows.
@@ -68,7 +71,14 @@
 //   K2/K3/K5  one thread per right-hand side with its last bw solution
 //       values in registers.
 // Wider bands take generic kernels: threads across one column's band
-// entries and tail columns (K1) and a shared-memory ring for the window.
+// entries and tail columns (K1) and a shared-memory ring for the window
+// (K5, the batched K9/K10 and K1's tail solve). There a row's sum puts
+// x_{j-1}, the value just computed, first, so every one of its bw
+// products sits on the row-to-row chain (~0.85 us a row at bw = 34).
+// K2 and K3 take warp kernels there instead (band_solve_warp below): a
+// right-looking substitution, one warp a right-hand side, that sums a
+// row farthest-first and leaves one multiply, one shuffle, one multiply
+// and one subtract on the chain from one row to the next.
 // K4 runs once per gradient and keeps the generic form: threads across
 // the bw entries of a row of H^{-1}, two barriers a row.
 //
@@ -170,6 +180,7 @@ __device__ __forceinline__ void factor_small(const double* __restrict__ band,
                                              double* __restrict__ Y,
                                              double* __restrict__ piv,
                                              double* __restrict__ hld,
+                                             int* __restrict__ flag,
                                              int d, int q, double* sm) {
     constexpr int W = BW + 1;
     double* Bs = sm;                      // [STAGE][W] band rows, chunk s
@@ -180,6 +191,7 @@ __device__ __forceinline__ void factor_small(const double* __restrict__ band,
     const int nchunks = (d + STAGE - 1) / STAGE;
     double cols[BW][W];                   // lane 0: columns j-1 .. j-BW
     double yw[BW];                        // tail threads: Y[j-1 .. j-BW]
+    bool clamped = false;                 // lane 0: a pivot was clamped
 #pragma unroll
     for (int k = 0; k < BW; ++k) {
         yw[k] = 0.0;
@@ -202,6 +214,7 @@ __device__ __forceinline__ void factor_small(const double* __restrict__ band,
 #pragma unroll
                     for (int t = 1; t <= BW; ++t)
                         if (t <= j) p -= cols[t - 1][t] * cols[t - 1][t];
+                    clamped |= p < PIVOT_FLOOR;
                     const double pv = clamp_pivot(p);
                     const double rs = 1.0 / sqrt(pv);
                     double e[W];
@@ -252,6 +265,7 @@ __device__ __forceinline__ void factor_small(const double* __restrict__ band,
         }
         __syncthreads();
     }
+    if (tid == 0) flag[0] = clamped;
     half_logdet(piv, hld, d);
 }
 
@@ -263,9 +277,9 @@ __global__ void band_factor_small(const double* __restrict__ band,
                                   double* __restrict__ Y,
                                   double* __restrict__ piv,
                                   double* __restrict__ hld,
-                                  int d, int q) {
+                                  int* __restrict__ flag, int d, int q) {
     extern __shared__ double sm[];
-    factor_small<BW>(band, C, L, rinv, Y, piv, hld, d, q, sm);
+    factor_small<BW>(band, C, L, rinv, Y, piv, hld, flag, d, q, sm);
 }
 
 // K8: block r factors system r; no tail (q = 0: C and Y are never read)
@@ -274,12 +288,13 @@ __global__ void band_factor_batched_small(const double* __restrict__ bands,
                                           double* __restrict__ L,
                                           double* __restrict__ rinv,
                                           double* __restrict__ piv,
-                                          double* __restrict__ hld, int d) {
+                                          double* __restrict__ hld,
+                                          int* __restrict__ flag, int d) {
     extern __shared__ double sm[];
     const size_t r = blockIdx.x;
     const size_t ob = r * d * (BW + 1), od = r * d;
     factor_small<BW>(bands + ob, nullptr, L + ob, rinv + od, nullptr,
-                     piv + od, hld + r, d, 0, sm);
+                     piv + od, hld + r, flag + r, d, 0, sm);
 }
 
 // --------------------------------------------------- K1, generic bw --
@@ -289,7 +304,8 @@ __device__ __forceinline__ void factor_columns(
         const double* __restrict__ band, const double* __restrict__ C,
         double* __restrict__ L, double* __restrict__ rinv,
         double* __restrict__ Y, double* __restrict__ piv,
-        double* __restrict__ hld, int d, int bw, int q, double* sm) {
+        double* __restrict__ hld, int* __restrict__ flag, int d, int bw,
+        int q, double* sm) {
     const int W = bw + 1;
     double* Lw = sm;                  // [W][W] ring: last W columns of L
     double* Yw = Lw + W * W;          // [W][q] ring: last W rows of Y
@@ -299,6 +315,7 @@ __device__ __forceinline__ void factor_columns(
     const int nt = blockDim.x;
     const int yc = tid - W;           // tail column of this thread
     int slot = 0;                     // ring slot of column j
+    bool clamped = false;             // thread 0: a pivot was clamped
 
     for (int j = 0; j < d; ++j) {
         const int jr = j % STAGE;
@@ -350,10 +367,12 @@ __device__ __forceinline__ void factor_columns(
         if (tid == 0) {
             rinv[j] = rs;
             piv[j] = pv;
+            clamped |= p < PIVOT_FLOOR;
         }
         slot = ring_inc(slot, W);
         __syncthreads();
     }
+    if (tid == 0) flag[0] = clamped;
     half_logdet(piv, hld, d);
 }
 
@@ -364,9 +383,10 @@ __global__ void band_factor_kernel(const double* __restrict__ band,
                                    double* __restrict__ Y,
                                    double* __restrict__ piv,
                                    double* __restrict__ hld,
+                                   int* __restrict__ flag,
                                    int d, int bw, int q) {
     extern __shared__ double sm[];
-    factor_columns(band, C, L, rinv, Y, piv, hld, d, bw, q, sm);
+    factor_columns(band, C, L, rinv, Y, piv, hld, flag, d, bw, q, sm);
 }
 
 __global__ void band_factor_batched_kernel(const double* __restrict__ bands,
@@ -374,12 +394,13 @@ __global__ void band_factor_batched_kernel(const double* __restrict__ bands,
                                            double* __restrict__ rinv,
                                            double* __restrict__ piv,
                                            double* __restrict__ hld,
+                                           int* __restrict__ flag,
                                            int d, int bw) {
     extern __shared__ double sm[];
     const size_t r = blockIdx.x;
     const size_t ob = r * d * (bw + 1), od = r * d;
     factor_columns(bands + ob, nullptr, L + ob, rinv + od, nullptr,
-                   piv + od, hld + r, d, bw, 0, sm);
+                   piv + od, hld + r, flag + r, d, bw, 0, sm);
 }
 
 // ------------------------------------------------ K2, K3, K5, bw <= 8 --
@@ -624,15 +645,6 @@ __device__ __forceinline__ void bwd_columns(const double* __restrict__ L,
     }
 }
 
-__global__ void band_bwd_kernel(const double* __restrict__ L,
-                                const double* __restrict__ rinv,
-                                const double* __restrict__ B,
-                                double* __restrict__ X,
-                                int d, int bw, int r) {
-    extern __shared__ double sm[];
-    bwd_columns(L, rinv, B, X, d, bw, r, sm);
-}
-
 __global__ void band_bwd_multi_kernel(const double* __restrict__ L,
                                       const double* __restrict__ rinv,
                                       const double* __restrict__ B,
@@ -662,6 +674,212 @@ __global__ void band_bwd_batched_kernel(const double* __restrict__ L,
     const size_t s = blockIdx.y;
     const size_t ob = s * d * (bw + 1), od = s * d, ox = s * d * r;
     bwd_columns(L + ob, rinv + od, B + ox, X + ox, d, bw, r, sm);
+}
+
+
+// ------------------------------ K2, K3, bw > SMALL_BW: warp substitution --
+// One warp (one block) per right-hand-side column runs a right-looking
+// substitution. Walked position p = 0..d-1 is row p of the forward solve
+// (L x = b) and row d-1-p of the backward one (L^T x = b); in walked
+// positions both are one recurrence,
+//   x_p = acc_p * rinv_p,   acc_{p+o} -= M[p][o] * x_p   (o = 1..bw),
+// with M[p][o] = L[j, o] (forward, j = p) or L[j-o, o] (backward,
+// j = d-1-p). The window [p, p + P) of pending rows, P = 32 NS > bw,
+// lives in registers: position p' in slot (p' / 32) % NS of lane p' % 32.
+// At step p lane p % 32 forms x_p, a shuffle broadcasts it, and every
+// lane subtracts its products from the rows of its slots that are 1..bw
+// ahead; then the finished slot takes position p + P's right-hand side.
+// So each row receives its products in the order the steps make them,
+// the farthest (x_{p'-bw}) first, each rounded before it is subtracted,
+// and the chain from x_{p-1} to x_p is one multiply, one shuffle, one
+// multiply and one subtract; the other bw - 1 updates of a step are off
+// it. The steps are unrolled over 4 tiles of 32, so every slot index and
+// owner lane is a constant.
+//
+// The multipliers are staged into shared memory by cp.async, a tile of
+// 32 walked positions at a time, several tiles ahead of the step. The
+// forward solve's M[p] is row p of L: a tile is 32 contiguous rows, in
+// a ring of WS_RING tiles. The backward solve's M[p][o] is L's diagonal
+// entry L[j-o, o]; a diagonal gather reads a sector of memory an entry,
+// so for bw < 64 the ring holds L's rows instead (WS_ROWS of them,
+// copied contiguously) and each step reads M[p][o] where row j-o sits;
+// for bw >= 64, whose rows would not fit, a tile is gathered. The rinv
+// and right-hand-side entries a lane takes in a tile are loaded into
+// registers one tile ahead, and lane u keeps x of the tile's step u for
+// one store at the tile's end: a tile's 32 steps have no branch, so the
+// compiler schedules across them. The only synchronisation is the
+// copy's wait and a __syncwarp a tile.
+constexpr int WS_TILE = 32;              // walked positions a staged tile
+constexpr int WS_RING = 4;               // tiles in a ring of tiles
+constexpr int WS_ROWS = 256;             // rows in the backward row ring
+
+__device__ __forceinline__ unsigned smem_addr(const double* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                 :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// 8 bytes, or zeros without reading src where `keep` is false
+__device__ __forceinline__ void cp_async8_or_zero(double* dst,
+                                                  const double* src,
+                                                  bool keep) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(keep ? 8 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(double* dst, const double* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Copy n doubles, 16 bytes a lane where both ends are aligned.
+__device__ __forceinline__ void copy_async(double* dst, const double* src,
+                                           int n, int lane) {
+    if (((reinterpret_cast<size_t>(src) | smem_addr(dst)) & 15) == 0) {
+        for (int e = 2 * lane; e + 1 < n; e += 64)
+            cp_async16(dst + e, src + e);
+        if ((n & 1) && lane == 0) cp_async8(dst + n - 1, src + n - 1);
+    } else {
+        for (int e = lane; e < n; e += 32) cp_async8(dst + e, src + e);
+    }
+}
+
+// Start the copies of tile k's multipliers into `tile`, entry u W + o =
+// M[32 k + u][o]. Forward: rows 32 k .. of L, one contiguous block.
+// Backward: lane o - 1 (mod 32) gathers diagonal o, M[u][o] =
+// L[j0 - u - o, o], zeros above row 0.
+template <bool BWD>
+__device__ __forceinline__ void stage_multipliers(
+        const double* __restrict__ L, double* tile, int k, int d, int bw,
+        int lane) {
+    const int W = bw + 1;
+    const int p0 = k * WS_TILE;
+    const int rows = min(WS_TILE, d - p0);
+    if (!BWD) {
+        copy_async(tile, L + (size_t)p0 * W, rows * W, lane);
+    } else {
+        const int j0 = d - 1 - p0;
+        for (int o = 1 + lane; o <= bw; o += 32)
+            for (int u = 0; u < rows; ++u) {
+                const int i = j0 - u - o;    // row of L
+                cp_async8_or_zero(tile + u * W + o,
+                                  L + (size_t)max(i, 0) * W + o, i >= 0);
+            }
+    }
+}
+
+// The backward row ring: walked position q (row d-1-q of L) sits at ring
+// row ~q & (WS_ROWS - 1), so a tile's 32 positions are 32 ascending ring
+// rows holding 32 ascending rows of L: start their copy for tile k.
+__device__ __forceinline__ void stage_rows(const double* __restrict__ L,
+                                           double* ring, int k, int d,
+                                           int bw, int lane) {
+    const int W = bw + 1;
+    const int jb = d - WS_TILE * (k + 1);     // row of position 32 k + 31
+    const int r0 = max(jb, 0);
+    const int slot = WS_ROWS - WS_TILE * (1 + k % (WS_ROWS / WS_TILE));
+    copy_async(ring + (size_t)(slot + r0 - jb) * W, L + (size_t)r0 * W,
+               (jb + WS_TILE - r0) * W, lane);
+}
+
+template <int NS, bool BWD>
+__global__ void __launch_bounds__(32)
+band_solve_warp(const double* __restrict__ L,
+                const double* __restrict__ rinv,
+                const double* __restrict__ B, double* __restrict__ X,
+                int d, int bw, int r) {
+    extern __shared__ double sm[];       // the ring: NT tiles of W
+    constexpr int P = 32 * NS;           // window of pending positions
+    constexpr unsigned FULL = 0xffffffffu;
+    // the backward solve reads a row ring while its rows fit; a step then
+    // reads rows up to bw (< 64) positions ahead, in tiles k .. k + NEED
+    constexpr bool ROWS = BWD && NS <= 2;
+    constexpr int NT = ROWS ? WS_ROWS / WS_TILE : WS_RING;
+    constexpr int NEED = ROWS ? 2 : 0;
+    constexpr int AHEAD = NT - 1 - NEED / 2;  // tiles staged ahead of k
+    const int W = bw + 1;
+    const int lane = threadIdx.x;
+    const int c = blockIdx.x;
+    const int ntiles = (d + WS_TILE - 1) / WS_TILE;
+    // entry (row, c) of a (d, r) array for walked position p < d
+    auto at = [&](int p) {
+        return (size_t)(BWD ? d - 1 - p : p) * r + c;
+    };
+    auto rhs = [&](int p) { return p < d ? B[at(p)] : 0.0; };
+    auto rec = [&](int p) {
+        return p < d ? rinv[BWD ? d - 1 - p : p] : 0.0;
+    };
+    auto stage = [&](int k) {
+        if (k < ntiles) {
+            if (ROWS)
+                stage_rows(L, sm, k, d, bw, lane);
+            else
+                stage_multipliers<BWD>(L, sm + (k % NT) * WS_TILE * W, k,
+                                       d, bw, lane);
+        }
+        cp_async_commit();
+    };
+    for (int k = 0; k < AHEAD; ++k) stage(k);
+    double acc[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) acc[s] = rhs(32 * s + lane);
+    double rq = rec(lane), bq = rhs(lane + P);
+    // whole tiles: the steps past d run on rows past d, which no real row
+    // reads, and store nothing
+    for (int k0 = 0; k0 < ntiles; k0 += 4) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+            const int k = k0 + t;
+            if (k >= ntiles) break;
+            cp_async_wait<AHEAD - 1 - NEED>();   // tiles to k + NEED
+            __syncwarp();                        // landed, for every lane;
+            stage(k + AHEAD);                    // tile k-1-NEED/2's slot
+            const double rc = rq, bc = bq;   // this tile's, then the next's
+            rq = rec((k + 1) * WS_TILE + lane);
+            bq = rhs((k + 1) * WS_TILE + lane + P);
+            const double* Ms = sm + (k % NT) * WS_TILE * W;
+            double xs = 0.0;                 // x of this tile's step lane
+#pragma unroll
+            for (int u = 0; u < WS_TILE; ++u) {
+                // position 32 k + u sits in slot k % NS = t % NS of lane
+                // u. No branch in a tile: the steps form one block the
+                // compiler schedules across
+                const bool own = lane == u;
+                const double x = __shfl_sync(FULL, acc[t % NS] * rc, u);
+                xs = own ? x : xs;
+                acc[t % NS] = own ? bc : acc[t % NS];   // 32k+u+P enters
+#pragma unroll
+                for (int s = 0; s < NS; ++s) {
+                    // offset of the position in slot s from 32 k + u
+                    const int o = (32 * (s - t) + lane - u) & (P - 1);
+                    const bool hit = o >= 1 && o <= bw;
+                    const int oo = hit ? o : 0;
+                    // ROWS: row j - oo of L, position 32 k + u + oo
+                    const double m = ROWS
+                        ? sm[(~(k * WS_TILE + u + oo) & (WS_ROWS - 1)) * W
+                             + oo]
+                        : Ms[u * W + oo];
+                    const double a = acc[s] - m * x;
+                    acc[s] = hit ? a : acc[s];
+                }
+            }
+            if (k * WS_TILE + lane < d) X[at(k * WS_TILE + lane)] = xs;
+        }
+    }
+    cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------- K4 --
@@ -768,21 +986,21 @@ size_t takahashi_smem(int bw) {
 template <int BW>
 cudaError_t launch_factor_small(const double* band, const double* C,
                                 double* L, double* rinv, double* Y,
-                                double* piv, double* hld, int d, int q,
-                                cudaStream_t st) {
+                                double* piv, double* hld, int* flag, int d,
+                                int q, cudaStream_t st) {
     const int nt = 32 + (q > 0 ? round_threads(q) : 0);
     band_factor_small<BW><<<1, nt, factor_small_smem(BW), st>>>(
-        band, C, L, rinv, Y, piv, hld, d, q);
+        band, C, L, rinv, Y, piv, hld, flag, d, q);
     return cudaGetLastError();
 }
 
 template <int BW>
 cudaError_t launch_factor_batched_small(const double* bands, double* L,
                                         double* rinv, double* piv,
-                                        double* hld, int nsys, int d,
-                                        cudaStream_t st) {
+                                        double* hld, int* flag, int nsys,
+                                        int d, cudaStream_t st) {
     band_factor_batched_small<BW><<<nsys, 32, factor_small_smem(BW), st>>>(
-        bands, L, rinv, piv, hld, d);
+        bands, L, rinv, piv, hld, flag, d);
     return cudaGetLastError();
 }
 
@@ -832,12 +1050,12 @@ using RhsLaunch = cudaError_t (*)(int, const double*, const double*,
                                   cudaStream_t);
 using FactorLaunch = cudaError_t (*)(const double*, const double*, double*,
                                      double*, double*, double*, double*,
-                                     int, int, cudaStream_t);
+                                     int*, int, int, cudaStream_t);
 using RhsBatchedLaunch = cudaError_t (*)(int, const double*, const double*,
                                          const double*, double*, int, int,
                                          int, cudaStream_t);
 using FactorBatchedLaunch = cudaError_t (*)(const double*, double*, double*,
-                                            double*, double*, int, int,
+                                            double*, double*, int*, int, int,
                                             cudaStream_t);
 // the register-window instantiations, indexed by bandwidth
 const RhsLaunch kRhsSmall[SMALL_BW + 1] = {
@@ -860,11 +1078,15 @@ const FactorBatchedLaunch kFactorBatchedSmall[SMALL_BW + 1] = {
     launch_factor_batched_small<5>, launch_factor_batched_small<6>,
     launch_factor_batched_small<7>, launch_factor_batched_small<8>};
 
+// kind 0 forward (K2), 1 backward (K3), 2 backward for the draws (K5).
+// Past SMALL_BW, K2 and K3 run on the warp kernels (launch_solve); here
+// only K1's tail solve (kind 0 with its cap) and K5 take the generic code.
 cudaError_t launch_rhs(int kind, const double* L, const double* rinv,
                        const double* B, double* X, int d, int bw, int r,
                        cudaStream_t st, double cap = NO_CAP) {
     if (bw >= 1 && bw <= SMALL_BW)
         return kRhsSmall[bw](kind, L, rinv, B, X, d, r, cap, st);
+    if (kind == 1) return cudaErrorInvalidValue;
     const int grid = (r + RHS_THREADS - 1) / RHS_THREADS;
     const size_t smem = rhs_smem(kind == 0 ? bw : bw + 1, bw + 1);
     cudaError_t e;
@@ -873,11 +1095,6 @@ cudaError_t launch_rhs(int kind, const double* L, const double* rinv,
         if (e != cudaSuccess) return e;
         band_fwd_kernel<<<grid, RHS_THREADS, smem, st>>>(L, rinv, B, X, d,
                                                          bw, r, cap);
-    } else if (kind == 1) {
-        e = allow_smem(band_bwd_kernel, smem);
-        if (e != cudaSuccess) return e;
-        band_bwd_kernel<<<grid, RHS_THREADS, smem, st>>>(L, rinv, B, X, d,
-                                                         bw, r);
     } else {
         e = allow_smem(band_bwd_multi_kernel, smem);
         if (e != cudaSuccess) return e;
@@ -910,6 +1127,35 @@ cudaError_t launch_rhs_batched(int kind, const double* L, const double* rinv,
     return cudaGetLastError();
 }
 
+
+// K2 (forward) or K3 (backward) for bw > SMALL_BW on the warp kernels
+template <int NS, bool BWD>
+cudaError_t launch_solve_warp(const double* L, const double* rinv,
+                              const double* B, double* X, int d, int bw,
+                              int r, cudaStream_t st) {
+    const size_t rows = BWD && NS <= 2 ? WS_ROWS : WS_RING * WS_TILE;
+    const size_t smem = sizeof(double) * rows * (size_t)(bw + 1);
+    cudaError_t e = allow_smem(band_solve_warp<NS, BWD>, smem);
+    if (e != cudaSuccess) return e;
+    band_solve_warp<NS, BWD><<<r, 32, smem, st>>>(L, rinv, B, X, d, bw, r);
+    return cudaGetLastError();
+}
+
+template <bool BWD>
+cudaError_t launch_solve(const double* L, const double* rinv,
+                         const double* B, double* X, int d, int bw, int r,
+                         cudaStream_t st) {
+    if (bw <= SMALL_BW)
+        return launch_rhs(BWD ? 1 : 0, L, rinv, B, X, d, bw, r, st);
+    if (bw < 32)
+        return launch_solve_warp<1, BWD>(L, rinv, B, X, d, bw, r, st);
+    if (bw < 64)
+        return launch_solve_warp<2, BWD>(L, rinv, B, X, d, bw, r, st);
+    if (bw < 128)
+        return launch_solve_warp<4, BWD>(L, rinv, B, X, d, bw, r, st);
+    return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // ------------------------------------------------------ C interface --
@@ -927,20 +1173,21 @@ int bgt_band_factor_tile(int bw, int q) {
     return (int)max(0L, min((long)q, tile));
 }
 
+// flag[0]: 1 where a raw pivot fell under PIVOT_FLOOR and was clamped
 int bgt_band_factor(const double* band, const double* C, double* L,
                     double* rinv, double* Y, double* piv, double* hld,
-                    int d, int bw, int q, void* stream) {
+                    int* flag, int d, int bw, int q, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     // a tail wider than the block takes would leave columns of Y unwritten
     if (q > bgt_band_factor_tile(bw, q)) return (int)cudaErrorInvalidValue;
     if (bw >= 1 && bw <= SMALL_BW)
-        return (int)kFactorSmall[bw](band, C, L, rinv, Y, piv, hld, d, q,
-                                     st);
+        return (int)kFactorSmall[bw](band, C, L, rinv, Y, piv, hld, flag, d,
+                                     q, st);
     const size_t smem = factor_smem(bw, q);
     cudaError_t e = allow_smem(band_factor_kernel, smem);
     if (e != cudaSuccess) return (int)e;
     band_factor_kernel<<<1, round_threads(bw + 1 + q), smem, st>>>(
-        band, C, L, rinv, Y, piv, hld, d, bw, q);
+        band, C, L, rinv, Y, piv, hld, flag, d, bw, q);
     return (int)cudaGetLastError();
 }
 
@@ -954,12 +1201,14 @@ int bgt_band_tail_solve(const double* L, const double* rinv, const double* C,
 
 int bgt_band_fwd_solve(const double* L, const double* rinv, const double* B,
                        double* X, int d, int bw, int r, void* stream) {
-    return (int)launch_rhs(0, L, rinv, B, X, d, bw, r, (cudaStream_t)stream);
+    return (int)launch_solve<false>(L, rinv, B, X, d, bw, r,
+                                    (cudaStream_t)stream);
 }
 
 int bgt_band_bwd_solve(const double* L, const double* rinv, const double* B,
                        double* X, int d, int bw, int r, void* stream) {
-    return (int)launch_rhs(1, L, rinv, B, X, d, bw, r, (cudaStream_t)stream);
+    return (int)launch_solve<true>(L, rinv, B, X, d, bw, r,
+                                   (cudaStream_t)stream);
 }
 
 int bgt_band_bwd_multi(const double* L, const double* rinv, const double* B,
@@ -981,17 +1230,17 @@ int bgt_band_takahashi(const double* L, const double* rinv, double* Z,
 // the scratch piv) hold one entry (one row) per system
 
 int bgt_band_factor_batched(const double* bands, double* L, double* rinv,
-                            double* piv, double* hld, int nsys, int d,
-                            int bw, void* stream) {
+                            double* piv, double* hld, int* flag, int nsys,
+                            int d, int bw, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (bw >= 1 && bw <= SMALL_BW)
-        return (int)kFactorBatchedSmall[bw](bands, L, rinv, piv, hld, nsys,
-                                            d, st);
+        return (int)kFactorBatchedSmall[bw](bands, L, rinv, piv, hld, flag,
+                                            nsys, d, st);
     const size_t smem = factor_smem(bw, 0);
     cudaError_t e = allow_smem(band_factor_batched_kernel, smem);
     if (e != cudaSuccess) return (int)e;
     band_factor_batched_kernel<<<nsys, round_threads(bw + 1), smem, st>>>(
-        bands, L, rinv, piv, hld, d, bw);
+        bands, L, rinv, piv, hld, flag, d, bw);
     return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,8 @@
 //                   becomes max(|pivot|, 1e-12)) and the cap |L| <= 1e3.
 //                   It reads the lower triangle and writes L, lower, with
 //                   zeros above the diagonal (the TPU kernel wrote the
-//                   transposed factor as hi/lo f32 pairs).
+//                   transposed factor as hi/lo f32 pairs), and sets
+//                   flag[0] to 1 where it clamped a pivot.
 // K7 dense_solve_lower replaces chol_dd.py:solve_lower_fn
 //                   (_solve_lower_kernel): X = L^{-1} B for one 128-row
 //                   diagonal block and r right-hand sides; with trans = 1
@@ -89,7 +90,8 @@ cudaError_t allow_smem(K* kernel, size_t bytes) {
 // for it (the diagonal and the lower column of A).
 __global__ void __launch_bounds__(FACTOR_TX * FACTOR_TY)
 dense_factor_block_kernel(const double* __restrict__ S, int lds,
-                          double* __restrict__ L, int ldl) {
+                          double* __restrict__ L, int ldl,
+                          int* __restrict__ flag) {
     extern __shared__ double smem[];
     double* A = smem;                 // (NB, NB), row-major
     double* col = smem + NB * NB;     // the scaled column j
@@ -100,8 +102,11 @@ dense_factor_block_kernel(const double* __restrict__ S, int lds,
     for (int e = tid; e < NB * NB; e += nt)
         A[e] = S[(size_t)(e / NB) * lds + (e % NB)];
     __syncthreads();
+    bool clamped = false;                 // thread 0: a pivot was clamped
     for (int j = 0; j < NB; ++j) {
-        const double rs = 1.0 / sqrt(clamp_pivot(A[j * NB + j]));
+        const double p = A[j * NB + j];
+        clamped |= p < PIVOT_FLOOR;
+        const double rs = 1.0 / sqrt(clamp_pivot(p));
         for (int i = j + tid; i < NB; i += nt) {
             const double l = clip(A[i * NB + j] * rs, L_CAP);
             col[i] = l;
@@ -124,6 +129,7 @@ dense_factor_block_kernel(const double* __restrict__ S, int lds,
         L[(size_t)i * ldl + k] = k < i ? A[k * NB + i] : (k == i ? dg[i]
                                                                  : 0.0);
     }
+    if (tid == 0 && clamped) flag[0] = 1;
 }
 
 // K7: X = L^{-1} B (TRANS false) or L^{-T} B (TRANS true) for one
@@ -176,13 +182,16 @@ dense_solve_kernel(const double* __restrict__ L, int ldl,
 
 extern "C" {
 
+// flag[0] is set to 1 where a raw pivot fell under PIVOT_FLOOR and was
+// clamped, and left as it is otherwise (so the blocks of one blocked
+// factorization share one flag)
 int bgt_dense_factor_block(const double* S, int lds, double* L, int ldl,
-                           void* stream) {
+                           int* flag, void* stream) {
     const size_t smem = (size_t)(NB * NB + 2 * NB) * sizeof(double);
     cudaError_t e = allow_smem(dense_factor_block_kernel, smem);
     if (e != cudaSuccess) return (int)e;
     dense_factor_block_kernel<<<1, dim3(FACTOR_TX, FACTOR_TY), smem,
-                                (cudaStream_t)stream>>>(S, lds, L, ldl);
+                                (cudaStream_t)stream>>>(S, lds, L, ldl, flag);
     return (int)cudaGetLastError();
 }
 

@@ -31,7 +31,6 @@ import torch.nn.functional as F
 
 from ..basis import reparam
 from ..device import DTYPE
-from ..linalg import band_arrow
 from ..linalg.band_arrow import BandArrowEngine
 from ..model import families
 
@@ -352,14 +351,16 @@ class FastIWPBackend(HostNodes):
                 - torch.log(sd).sum())
 
     @torch.no_grad()
-    def gate_closed(self, theta, state) -> bool:
-        """Whether the half-log-det backward's sick-factor gate
-        (band_arrow.SICK_INV) drops the log-det's cotangents at theta with
-        the latent state `state` (V, tail, ...): the theta gradient there
-        is then the value's explicit part alone."""
+    def gate_reasons(self, theta, state):
+        """Why the half-log-det backward's sick-factor gate would drop the
+        log-det's cotangents at theta with the latent state `state` (V,
+        tail, ...): (a band pivot clamped, the tail factor left its
+        plain route, an entry of H^{-1} it reads is not finite), as
+        Python bools (BandArrowEngine.gate_reasons). Where any holds the
+        theta gradient there is the value's explicit part alone."""
         th = torch.as_tensor(theta, dtype=DTYPE, device=self.device)
         af = self.hessian_factor(state[0], state[1], th)[0]
-        return bool(self.engine.gate_peak(af) >= band_arrow.SICK_INV)
+        return tuple(bool(x) for x in self.engine.gate_reasons(af))
 
     # -- inner Newton ---------------------------------------------------
     @torch.no_grad()

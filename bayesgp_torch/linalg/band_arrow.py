@@ -17,6 +17,14 @@ torch.autograd.Function whose backward is the Takahashi selected inverse
 plus the Schur-tail corrections, d(0.5 log|H|)/dH = 0.5 H^{-1} on the
 entries that parameterize H -- the backward never differentiates
 through the factorization recurrence.
+
+The backward's sick-factor gate drops those cotangents only where the
+factor is sick: K1 clamped a band pivot, the tail factor left its plain
+route (chol_jittered added jitter or took its diagonal surrogate, or K6
+clamped a pivot on the dense route), or an entry of H^{-1} that the
+backward reads is not finite. On a healthy factor it is the identity,
+with no cutoff on |H^{-1}|: the JAX package's CPU-f64 engine
+(BlockEngine) has no gate at all.
 """
 from __future__ import annotations
 
@@ -31,9 +39,6 @@ from . import chol_dense
 CHOL_JITTER = 1e-4
 # tails at least this wide factor on the blocked dense kernels
 DENSE_TAIL_MIN = 256
-# |H^{-1}| above this on the selected entries marks a sick (pivot-clamped)
-# factor, whose log-det cotangents are dropped
-SICK_INV = 1e12
 
 
 def _chol_ok(S):
@@ -43,21 +48,23 @@ def _chol_ok(S):
 
 
 def chol_jittered(S):
-    """Lower Cholesky of (..., q, q) with failure escalation, matrix by
-    matrix: plain -> + jitter * scale * I -> a diagonal surrogate that
-    always factors. A healthy matrix factors exactly as it is. Branchless
-    (no host synchronisation)."""
+    """(L, left) for (..., q, q) S: the lower Cholesky factor with failure
+    escalation, matrix by matrix: plain -> + jitter * scale * I -> a
+    diagonal surrogate that always factors, and left (...,) bool, whether
+    a matrix left the plain route. A healthy matrix factors exactly as it
+    is. Branchless (no host synchronisation)."""
     q = S.shape[-1]
     eye = torch.eye(q, dtype=S.dtype, device=S.device)
     Ssg = S.detach()
     diag = torch.diagonal(S, dim1=-2, dim2=-1)
     scale = torch.clamp(diag.detach().abs().mean(-1), min=1e-30)
-    jit = torch.where(_chol_ok(Ssg), torch.zeros_like(scale),
+    ok0 = _chol_ok(Ssg)
+    jit = torch.where(ok0, torch.zeros_like(scale),
                       CHOL_JITTER * scale)[..., None, None]
     ok1 = _chol_ok(Ssg + jit * eye)[..., None, None]
     dsafe = torch.maximum(diag.abs(), 1e-8 * scale[..., None])
     Sfin = torch.where(ok1, S + jit * eye, eye * dsafe[..., None, :])
-    return torch.linalg.cholesky_ex(Sfin)[0]
+    return torch.linalg.cholesky_ex(Sfin)[0], ~ok0
 
 
 def _solve_L(L, b):
@@ -75,6 +82,9 @@ class BandFactor(NamedTuple):
     Ls: torch.Tensor     # lower Cholesky of the Schur complement: (q, q),
     #                      or on the dense route the padded blocked factor
     hld_b: torch.Tensor  # () half log-det of the banded part
+    clamped: torch.Tensor    # () bool: K1 clamped a band pivot
+    tail_left: torch.Tensor  # () bool: the tail factor left its plain
+    #                          route (jitter, surrogate or a K6 clamp)
 
 
 class BandArrowEngine:
@@ -94,8 +104,10 @@ class BandArrowEngine:
 
     # -- the Schur tail ----------------------------------------------------
     def _tail_chol(self, S):
+        """(factor, whether it left its plain route) of the Schur tail."""
         if self.dense_tail:
-            return chol_dense.cholesky_blocked(S)
+            flag = torch.zeros((), dtype=torch.int32, device=S.device)
+            return chol_dense.cholesky_blocked(S, flag=flag), flag != 0
         return chol_jittered(S)
 
     def _tail_solve_L(self, Ls, b):
@@ -112,10 +124,12 @@ class BandArrowEngine:
         with torch.no_grad():
             band = band.detach().contiguous()
             C = C.detach().contiguous()
-            L, rinv, Y, hld_b = self.ops.factor(band, C)
-            Ls = (self._tail_chol(Hd.detach() - Y.T @ Y) if self.q
-                  else Hd.detach())
-        return BandFactor(L, rinv, Y, Ls, hld_b)
+            L, rinv, Y, hld_b, clamped = self.ops.factor(band, C)
+            if self.q:
+                Ls, left = self._tail_chol(Hd.detach() - Y.T @ Y)
+            else:
+                Ls, left = Hd.detach(), torch.zeros_like(clamped)
+        return BandFactor(L, rinv, Y, Ls, hld_b, clamped, left)
 
     def half_logdet(self, f: BandFactor):
         if self.dense_tail:
@@ -171,17 +185,17 @@ class BandArrowEngine:
             corr[:d - o, o] = (A[o:] * Wm[:d - o]).sum(1)
         return hinv_band + corr, A, Sinv
 
-    def gate_peak(self, f: BandFactor):
-        """The largest |H^{-1}| entry the sick-factor gate tests (inf where
-        one is not finite): the band of Hinv_bb and A. The half-log-det
-        backward drops its cotangents where this reaches SICK_INV."""
-        hinv_band, A, _ = self._hinv_parts(f)
-        return _gate_peak(hinv_band, A)
+    def gate_reasons(self, f: BandFactor):
+        """Why the half-log-det backward would drop its cotangents for f,
+        as 0-d bool tensors: (K1 clamped a band pivot, the tail factor
+        left its plain route, an entry of H^{-1} the backward reads is
+        not finite). The gate is closed where any of them holds."""
+        return f.clamped, f.tail_left, ~_finite(*self._hinv_parts(f))
 
     def hld_backward(self, f: BandFactor, ct):
         """Cotangents of the half log-det for (band, C, Hd): ct times
         0.5 H^{-1} on the band's diagonal, H^{-1} off it, -A for C and
-        0.5 S^{-1} for Hd (_hinv_parts)."""
+        0.5 S^{-1} for Hd (_hinv_parts); all zero on a sick factor."""
         d, bw, q = self.d, self.bw, self.q
         dt, dev = f.L.dtype, f.L.device
         hinv_band, A, Sinv = self._hinv_parts(f)
@@ -193,11 +207,12 @@ class BandArrowEngine:
             ct_Hd = torch.zeros((0, 0), dtype=dt, device=dev)
         w = torch.ones((1, bw + 1), dtype=dt, device=dev)
         w[0, 0] = 0.5
-        # sick-factor gate: a healthy equilibrated system has
-        # |H^{-1}| <= cond ~ 1e8, so the gate is the identity there; on a
-        # pivot-clamped factor the selected inverse overflows and its
-        # cotangents are dropped (the value's explicit gradient remains)
-        okf = (_gate_peak(hinv_band, A) < SICK_INV).to(dt)
+        # sick-factor gate: the identity on a healthy factor; where K1
+        # clamped a pivot or the tail left its plain route the selected
+        # inverse is that of another matrix, and its cotangents are
+        # dropped (the value's explicit gradient remains)
+        okf = (~(f.clamped | f.tail_left)
+               & _finite(hinv_band, A, Sinv)).to(dt)
 
         def san(x):
             return okf * torch.where(torch.isfinite(x), x,
@@ -215,16 +230,14 @@ class BandArrowEngine:
         return _HalfLogdet.apply(band, C, Hd, self, f)
 
 
-def _gate_peak(hinv_band, A):
-    """max |x| over the band of H^{-1} and A, inf where an entry is not
+def _finite(*parts):
+    """0-d bool: every entry of the given tensors (None skipped) is
     finite."""
-    inf = torch.tensor(float("inf"), dtype=hinv_band.dtype,
-                       device=hinv_band.device)
-    big = torch.where(torch.isfinite(hinv_band), hinv_band.abs(), inf).max()
-    if A is not None:
-        big = torch.maximum(big, torch.where(torch.isfinite(A), A.abs(),
-                                             inf).max())
-    return big
+    ok = torch.ones((), dtype=torch.bool, device=parts[0].device)
+    for x in parts:
+        if x is not None:
+            ok = ok & torch.isfinite(x).all()
+    return ok
 
 
 class _HalfLogdet(torch.autograd.Function):

@@ -16,7 +16,8 @@ sides (NR, d) and (NR, q).
 torch.autograd.Function whose backward is the batched Takahashi selected
 inverse plus the Schur-tail corrections, system r's cotangents scaled by
 ct[r]. No operation mixes systems, so the gradient of the sum over r is
-each system's own gradient.
+each system's own gradient. The sick-factor gate is BandArrowEngine's,
+system by system.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from . import band_batched as bb
-from .band_arrow import SICK_INV, chol_jittered
+from .band_arrow import chol_jittered
 
 
 def _solve_L(L, b):
@@ -36,12 +37,20 @@ def _solve_Lt(L, b):
     return torch.linalg.solve_triangular(L.mT, b, upper=True)
 
 
+def _finite(x):
+    """(NR,) bool: every entry of system r's slice of x is finite."""
+    return torch.isfinite(x).flatten(1).all(1)
+
+
 class BatchedFactor(NamedTuple):
     L: torch.Tensor      # (NR, d, bw+1) bands of the factors
     rinv: torch.Tensor   # (NR, d) 1 / L_r[j, j]
     Y: torch.Tensor      # (NR, d, q) L_r^{-1} C_r
     Ls: torch.Tensor     # (NR, q, q) lower Cholesky of the Schur tails
     hld_b: torch.Tensor  # (NR,) half log-det of the banded parts
+    clamped: torch.Tensor    # (NR,) bool: K8 clamped a pivot of system r
+    tail_left: torch.Tensor  # (NR,) bool: system r's tail left the plain
+    #                          route of chol_jittered
 
 
 class BandArrowBatchedEngine:
@@ -59,13 +68,15 @@ class BandArrowBatchedEngine:
 
     def factor(self, bands, C, Hd):
         with torch.no_grad():
-            L, rinv, hld_b = self.ops.factor(bands.detach().contiguous())
+            L, rinv, hld_b, clamped = self.ops.factor(
+                bands.detach().contiguous())
             if self.q:
                 Y = self.ops.fwd_solve(L, rinv, C.detach().contiguous())
-                Ls = chol_jittered(Hd.detach() - Y.mT @ Y)
+                Ls, left = chol_jittered(Hd.detach() - Y.mT @ Y)
             else:
-                Y, Ls = C.detach(), Hd.detach()
-        return BatchedFactor(L, rinv, Y, Ls, hld_b)
+                Y, Ls, left = C.detach(), Hd.detach(), torch.zeros_like(
+                    clamped)
+        return BatchedFactor(L, rinv, Y, Ls, hld_b, clamped, left)
 
     def half_logdet(self, f: BatchedFactor):
         return f.hld_b + torch.log(
@@ -101,27 +112,21 @@ class BandArrowBatchedEngine:
             for o in range(bw + 1):
                 corr[:, :d - o, o] = (A[:, o:] * Wm[:, :d - o]).sum(2)
             hinv_band = hinv_band + corr
+            finite = _finite(hinv_band) & _finite(A) & _finite(Sinv)
             ct_C = -ct3 * A
             ct_Hd = (0.5 * ct3) * Sinv
         else:
-            A = None
             ct_C = torch.zeros((NR, d, 0), dtype=dt, device=dev)
             ct_Hd = torch.zeros((NR, 0, 0), dtype=dt, device=dev)
+            finite = _finite(hinv_band)
         w = torch.ones((1, 1, bw + 1), dtype=dt, device=dev)
         w[0, 0, 0] = 0.5
         # sick-factor gate per system, as BandArrowEngine.hld_backward:
-        # the identity on a healthy factor; a pivot-clamped system drops
-        # its own cotangents and leaves its neighbours alone
-        inf = torch.tensor(float("inf"), dtype=dt, device=dev)
-
-        def biggest(x):
-            return torch.where(torch.isfinite(x), x.abs(),
-                               inf).flatten(1).max(1).values
-
-        big = biggest(hinv_band)
-        if A is not None:
-            big = torch.maximum(big, biggest(A))
-        okf = (big < SICK_INV).to(dt)[:, None, None]
+        # the identity on a healthy factor; a system whose pivot clamped,
+        # whose tail left its plain route or whose selected inverse is
+        # not finite drops its own cotangents and leaves its neighbours
+        # alone
+        okf = (~(f.clamped | f.tail_left) & finite).to(dt)[:, None, None]
 
         def san(x):
             return okf * torch.where(torch.isfinite(x), x,

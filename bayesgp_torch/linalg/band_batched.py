@@ -28,8 +28,12 @@ counted in `launches`, and no fallback from one to the other. Every
 plain version computes system r with the arithmetic and order of the
 one-system plain version in band_kernels.py, and every kernel runs the
 device code of the one-system kernel at system r's offset: system r of a
-batched result equals the one-system result bit for bit. K8 keeps K1's
-guards (pivot floor 1e-12, |L| <= 1e3).
+batched result equals the one-system result bit for bit. (Above
+bk.SMALL_BW the one-system solves K2/K3 sum farthest-first on their own
+warp kernels; K9/K10 keep the nearest-first generic code there, so at
+those widths their systems agree with K2/K3 to rounding only. The
+replicate fits run bw = 3.) K8 keeps K1's guards (pivot floor 1e-12,
+|L| <= 1e3) and reports per system whether it clamped a pivot.
 """
 from __future__ import annotations
 
@@ -82,14 +86,16 @@ def band_factor_batched_plain(bands):
     L = torch.zeros_like(bands)
     rinv = bands.new_zeros((NR, d))
     logdet = bands.new_zeros(NR)
+    lows = []                 # per row: each system's raw pivot was clamped
     for j in range(d):
         nprev = min(j, bw)
         piv = bands[:, j, 0]
         for t in range(1, nprev + 1):
             m = L[:, j - t, t]
             piv = piv - m * m
-        pv = torch.where(piv < PIVOT_FLOOR,
-                         torch.clamp(piv.abs(), min=PIVOT_FLOOR), piv)
+        low = piv < PIVOT_FLOOR
+        lows.append(low)
+        pv = torch.where(low, torch.clamp(piv.abs(), min=PIVOT_FLOOR), piv)
         rs = 1.0 / torch.sqrt(pv)
         logdet = logdet + torch.log(pv)
         acc = bands[:, j].clone()
@@ -102,13 +108,16 @@ def band_factor_batched_plain(bands):
             col[:, d - j:] = 0.0
         L[:, j] = torch.clamp(col, -L_CAP, L_CAP)
         rinv[:, j] = rs
-    return L, rinv, 0.5 * logdet
+    clamped = (torch.stack(lows).any(0) if lows else
+               torch.zeros(NR, dtype=torch.bool, device=bands.device))
+    return L, rinv, 0.5 * logdet, clamped
 
 
 def band_factor_batched(bands):
-    """(L, rinv, hld) for (NR, d, bw+1) lower bands: L_r L_r^T = band_r
-    (guarded as band_factor), rinv = 1/diag(L_r) as (NR, d), and hld (NR,)
-    = 0.5 * sum(log pivots) of each system."""
+    """(L, rinv, hld, clamped) for (NR, d, bw+1) lower bands: L_r L_r^T =
+    band_r (guarded as band_factor), rinv = 1/diag(L_r) as (NR, d), hld
+    (NR,) = 0.5 * sum(log pivots) of each system, and clamped (NR,) bool:
+    whether system r clamped a pivot."""
     _check(bands, "bands", 3)
     if bands.shape[0] > MAX_SYSTEMS:
         raise ValueError(f"at most {MAX_SYSTEMS} systems a call")
@@ -119,11 +128,13 @@ def band_factor_batched(bands):
     rinv = bands.new_empty((NR, d))
     piv = bands.new_empty((NR, d))      # scratch: the clamped pivots
     hld = bands.new_empty(NR)
+    flag = torch.zeros(NR, dtype=torch.int32, device=bands.device)
     if NR:
         with torch.cuda.device(bands.device):
             _launch("band_factor_batched", _ptr(bands), _ptr(L), _ptr(rinv),
-                    _ptr(piv), _ptr(hld), NR, d, W - 1, _stream(bands))
-    return L, rinv, hld
+                    _ptr(piv), _ptr(hld), _ptr(flag), NR, d, W - 1,
+                    _stream(bands))
+    return L, rinv, hld, flag != 0
 
 
 # -- K9 / K10: solves -----------------------------------------------------

@@ -30,7 +30,13 @@ its chunked kernels K1c-K5c included: a band up to BW_MAX = 125 wide
 
 The factor keeps the modified-Cholesky guards of the JAX package's K1:
 a pivot below 1e-12 becomes max(|pivot|, 1e-12), |L| is capped at 1e3
-and |Y| at 1e8. On a healthy equilibrated system none of them binds.
+and |Y| at 1e8. On a healthy equilibrated system none of them binds;
+the factor reports whether it clamped a pivot, which the half-log-det
+backward reads (band_arrow.py).
+
+The solves K2 and K3 sum a row's products nearest-first up to SMALL_BW
+and farthest-first above it (the comment at K2 below); each plain
+version takes the order of the kernel that serves the width.
 """
 from __future__ import annotations
 
@@ -50,6 +56,8 @@ Y_CAP = 1e8
 # widest band the kernels take: the JAX package sends bands up to 125 to
 # its kernels, and every kernel's shared memory holds that width
 BW_MAX = 125
+# widest band the register-window kernels serve (csrc/band_kernels.cu)
+SMALL_BW = 8
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "band_kernels.cu"
@@ -119,7 +127,7 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.bgt_band_factor.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
+        lib.bgt_band_factor.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P]
         lib.bgt_band_factor_tile.argtypes = [I, I]
         lib.bgt_band_tail_solve.argtypes = [P, P, P, P, I, I, I, P]
         for name in ("bgt_band_fwd_solve", "bgt_band_bwd_solve",
@@ -127,7 +135,8 @@ def _library():
             getattr(lib, name).argtypes = [P, P, P, P, I, I, I, P]
         lib.bgt_band_takahashi.argtypes = [P, P, P, I, I, P]
         # the batched entry points (wrappers in band_batched.py)
-        lib.bgt_band_factor_batched.argtypes = [P, P, P, P, P, I, I, I, P]
+        lib.bgt_band_factor_batched.argtypes = [P, P, P, P, P, P, I, I, I,
+                                                P]
         for name in ("bgt_band_fwd_solve_batched",
                      "bgt_band_bwd_solve_batched"):
             getattr(lib, name).argtypes = [P, P, P, P, I, I, I, I, P]
@@ -245,6 +254,7 @@ def band_factor_plain(band, C):
     inside = shifted <= bw
     shifted = torch.clamp(shifted, max=bw)
     zero = band.new_zeros(())
+    lows = []                        # per row: the raw pivot was clamped
     for j in range(d):
         nprev = min(j, bw)
         acc = torch.cat([band[j], C[j]])
@@ -256,8 +266,9 @@ def band_factor_plain(band, C):
             acc = _subtract_in_order(acc, torch.cat(
                 [S, _prev_rows(Y, j, nprev) * m], dim=1))
         piv = acc[0]
-        pv = torch.where(piv < PIVOT_FLOOR,
-                         torch.clamp(piv.abs(), min=PIVOT_FLOOR), piv)
+        low = piv < PIVOT_FLOOR
+        lows.append(low)
+        pv = torch.where(low, torch.clamp(piv.abs(), min=PIVOT_FLOOR), piv)
         rs = 1.0 / torch.sqrt(pv)
         logdet = logdet + torch.log(pv)
         col = acc[:W] * rs
@@ -267,13 +278,16 @@ def band_factor_plain(band, C):
         L[j] = torch.clamp(col, -L_CAP, L_CAP)
         Y[j] = torch.clamp(acc[W:] * rs, -Y_CAP, Y_CAP)
         rinv[j] = rs
-    return L, rinv, Y, 0.5 * logdet
+    clamped = (torch.stack(lows).any() if lows else
+               torch.zeros((), dtype=torch.bool, device=band.device))
+    return L, rinv, Y, 0.5 * logdet, clamped
 
 
 def band_factor(band, C):
-    """(L, rinv, Y, hld) for a (d, bw+1) lower band and a (d, q) tail
-    block C: L L^T = band (guarded), rinv = 1/diag(L), Y = L^{-1} C and
-    hld = 0.5 * sum(log pivots), a 0-d tensor.
+    """(L, rinv, Y, hld, clamped) for a (d, bw+1) lower band and a (d, q)
+    tail block C: L L^T = band (guarded), rinv = 1/diag(L), Y = L^{-1} C,
+    hld = 0.5 * sum(log pivots), a 0-d tensor, and clamped, a 0-d bool
+    tensor: whether a raw pivot fell under PIVOT_FLOOR and was clamped.
 
     On a card K1 computes the first columns of Y beside the band, as many
     as one block holds (bgt_band_factor_tile); the others are one K2
@@ -297,29 +311,45 @@ def band_factor(band, C):
     Y0 = torch.empty_like(C0)
     piv = band.new_empty(d)          # scratch: the clamped pivots
     hld = band.new_empty(())
+    flag = torch.empty((), dtype=torch.int32, device=band.device)
     with torch.cuda.device(band.device):
         _launch("band_factor", lib.bgt_band_factor,
                 _ptr(band), _ptr(C0), _ptr(L), _ptr(rinv), _ptr(Y0),
-                _ptr(piv), _ptr(hld), d, W - 1, tile, _stream(band))
+                _ptr(piv), _ptr(hld), _ptr(flag), d, W - 1, tile,
+                _stream(band))
         if tile == q:
-            return L, rinv, Y0, hld
+            return L, rinv, Y0, hld, flag != 0
         C1 = C[:, tile:].contiguous()
         Y1 = torch.empty_like(C1)
         _launch("band_fwd_solve", lib.bgt_band_tail_solve,
                 _ptr(L), _ptr(rinv), _ptr(C1), _ptr(Y1), d, W - 1,
                 q - tile, _stream(band))
-    return L, rinv, torch.cat([Y0, Y1], dim=1), hld
+    return L, rinv, torch.cat([Y0, Y1], dim=1), hld, flag != 0
 
 
 # -- K2: forward solve ------------------------------------------------------
+#
+# The order of a row's sum depends on the width. For bw <= SMALL_BW the
+# register-window kernels take the products nearest-first (the x_{j-1}
+# term first); for wider bands the warp kernels take them farthest-first
+# (the x_{j-bw} term first), the order in which a right-looking
+# substitution produces them. Each plain version sums in the order of
+# the kernel that serves its width; K5 keeps nearest-first at every
+# width.
+
 
 def band_fwd_solve_plain(L, rinv, B):
+    """Plain version of band_fwd_solve: row j is B[j] less the products
+    L[j-t, t] x_{j-t}, nearest-first for bw <= SMALL_BW, farthest-first
+    above, times rinv[j]."""
     d, W = L.shape
+    far_first = W - 1 > SMALL_BW
     X = torch.zeros_like(B)
     mult = _multipliers(L)[:, :, None]
     for j in range(d):
         n = min(j, W - 1)
-        acc = _subtract_in_order(B[j], _prev_rows(X, j, n) * mult[j, :n])
+        prods = _prev_rows(X, j, n) * mult[j, :n]
+        acc = _subtract_in_order(B[j], prods.flip(0) if far_first else prods)
         X[j] = acc * rinv[j]
     return X
 
@@ -340,22 +370,35 @@ def band_fwd_solve(L, rinv, B):
 
 # -- K3 / K5: backward solves -------------------------------------------------
 
-def band_bwd_solve_plain(L, rinv, B):
+def _bwd_plain(L, rinv, B, far_first):
     d, W = L.shape
     X = torch.zeros_like(B)
     for j in range(d - 1, -1, -1):
         n = min(d - 1 - j, W - 1)
-        acc = _subtract_in_order(B[j], X[j + 1:j + 1 + n]
-                                 * L[j, 1:1 + n, None])
+        prods = X[j + 1:j + 1 + n] * L[j, 1:1 + n, None]
+        acc = _subtract_in_order(B[j], prods.flip(0) if far_first else prods)
         X[j] = acc * rinv[j]
     return X
 
 
-def _bwd(name, fn_name, L, rinv, B):
+def band_bwd_solve_plain(L, rinv, B):
+    """Plain version of band_bwd_solve: row j is B[j] less the products
+    L[j, t] x_{j+t}, nearest-first for bw <= SMALL_BW, farthest-first
+    above, times rinv[j]."""
+    return _bwd_plain(L, rinv, B, far_first=L.shape[1] - 1 > SMALL_BW)
+
+
+def band_bwd_multi_plain(L, rinv, Z):
+    """Plain version of band_bwd_multi: band_bwd_solve's recurrence with
+    the products nearest-first at every width."""
+    return _bwd_plain(L, rinv, Z, far_first=False)
+
+
+def _bwd(name, fn_name, plain, L, rinv, B):
     _check_factor(L, rinv)
     _check_rhs(L, B)
     if not _on_cuda(L, rinv, B):
-        return band_bwd_solve_plain(L, rinv, B)
+        return plain(L, rinv, B)
     X = torch.empty_like(B)
     with torch.cuda.device(L.device):
         _launch(name, getattr(_library(), fn_name),
@@ -367,16 +410,15 @@ def _bwd(name, fn_name, L, rinv, B):
 def band_bwd_solve(L, rinv, B):
     """X with L^T X = B, for (d, r) right-hand sides B (the Newton and
     gradient solves)."""
-    return _bwd("band_bwd_solve", "bgt_band_bwd_solve", L, rinv, B)
-
-
-band_bwd_multi_plain = band_bwd_solve_plain
+    return _bwd("band_bwd_solve", "bgt_band_bwd_solve",
+                band_bwd_solve_plain, L, rinv, B)
 
 
 def band_bwd_multi(L, rinv, Z):
     """X with L^T X = Z for the (d, M) noise of M posterior draws (the
     same recurrence as band_bwd_solve, kept as its own kernel entry)."""
-    return _bwd("band_bwd_multi", "bgt_band_bwd_multi", L, rinv, Z)
+    return _bwd("band_bwd_multi", "bgt_band_bwd_multi",
+                band_bwd_multi_plain, L, rinv, Z)
 
 
 # -- K4: Takahashi selected inverse -----------------------------------------

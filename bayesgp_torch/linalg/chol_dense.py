@@ -23,7 +23,9 @@ blocks of larger row-major matrices (rows contiguous, any row stride).
 
 The block factor keeps the modified-Cholesky guards of the JAX
 package's K6: a pivot below 1e-12 becomes max(|pivot|, 1e-12) and |L| is
-capped at 1e3. On a healthy equilibrated matrix neither binds. The JAX
+capped at 1e3. On a healthy equilibrated matrix neither binds; given a
+flag, K6 and its plain version set it where they clamped a pivot, which
+the band engine's half-log-det backward reads (band_arrow.py). The JAX
 package's double-float pairs and its row/column flips (a TPU compiler
 limit) are not ported: Hopper computes in f64, and K7 loops backwards
 for the transposed solve.
@@ -67,7 +69,7 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.bgt_dense_factor_block.argtypes = [P, I, P, I, P]
+        lib.bgt_dense_factor_block.argtypes = [P, I, P, I, P, P]
         lib.bgt_dense_solve_lower.argtypes = [P, I, P, I, P, I, I, I, P]
         lib.bgt_dense_factor_block.restype = I
         lib.bgt_dense_solve_lower.restype = I
@@ -89,15 +91,17 @@ def _check(t, name, cols=None):
 
 # -- K6: one diagonal block ----------------------------------------------
 
-def dense_factor_block_plain(S):
+def dense_factor_block_plain(S, flag=None):
     """Plain version of dense_factor_block (same arithmetic, column by
     column, reading the lower triangle)."""
     A = S.clone()
     L = torch.zeros_like(S)
     for j in range(B):
         piv = A[j, j]
-        pv = torch.where(piv < PIVOT_FLOOR,
-                         torch.clamp(piv.abs(), min=PIVOT_FLOOR), piv)
+        low = piv < PIVOT_FLOOR
+        if flag is not None:
+            flag |= low
+        pv = torch.where(low, torch.clamp(piv.abs(), min=PIVOT_FLOOR), piv)
         rs = 1.0 / torch.sqrt(pv)
         col = torch.clamp(A[j:, j] * rs, -L_CAP, L_CAP)
         L[j:, j] = col
@@ -105,17 +109,25 @@ def dense_factor_block_plain(S):
     return L
 
 
-def dense_factor_block(S):
+def dense_factor_block(S, flag=None):
     """Lower Cholesky factor (128, 128) of the symmetric block S, of
-    which only the lower triangle is read (guarded: pivot clamp, cap)."""
+    which only the lower triangle is read (guarded: pivot clamp, cap).
+    flag: an optional 0-d int32 tensor on S's device, set to 1 where a
+    raw pivot fell under PIVOT_FLOOR and was clamped, else left as it
+    is."""
     _check(S, "S", B)
+    if flag is not None and (flag.dtype != torch.int32 or flag.dim()
+                             or flag.device != S.device):
+        raise ValueError("flag must be a 0-d int32 tensor on S's device")
     if not bk._on_cuda(S):
-        return dense_factor_block_plain(S)
+        return dense_factor_block_plain(S, flag)
     L = torch.empty((B, B), dtype=S.dtype, device=S.device)
+    if flag is None:
+        flag = torch.zeros((), dtype=torch.int32, device=S.device)
     with torch.cuda.device(S.device):
         bk._launch("dense_factor_block", _library().bgt_dense_factor_block,
-                   bk._ptr(S), S.stride(0), bk._ptr(L), B, bk._stream(S),
-                   counts=launches)
+                   bk._ptr(S), S.stride(0), bk._ptr(L), B, bk._ptr(flag),
+                   bk._stream(S), counts=launches)
     return L
 
 
@@ -176,11 +188,12 @@ def padded_dim(d: int) -> int:
     return -(-d // B) * B
 
 
-def cholesky_blocked(A, ops=KERNELS):
+def cholesky_blocked(A, ops=KERNELS, flag=None):
     """Padded lower factor (dp, dp) of the symmetric (d, d) matrix A, dp
     = d rounded up to 128, A padded with an identity block. Blocked
     right-looking: K6 on each diagonal block, K7 for the panel below it,
-    the trailing update T - X X^T by a matrix product."""
+    the trailing update T - X X^T by a matrix product. flag: as for
+    dense_factor_block, set where any block clamped a pivot."""
     d = A.shape[0]
     dp = padded_dim(d)
     S = A.new_zeros((dp, dp))
@@ -189,7 +202,7 @@ def cholesky_blocked(A, ops=KERNELS):
     L = torch.zeros_like(S)
     for lo in range(0, dp, B):
         hi = lo + B
-        Lkk = ops.factor_block(S[lo:hi, lo:hi])
+        Lkk = ops.factor_block(S[lo:hi, lo:hi], flag)
         L[lo:hi, lo:hi] = Lkk
         if hi < dp:
             # X Lkk^T = P  <=>  Lkk X^T = P^T

@@ -50,12 +50,14 @@ Phases (any failure raises and the script exits non-zero):
      bench_bigiid generator (n = 1e5, IWP3 k = 2000, q = 1e4 levels
      clustered in x, merged into the band: d = 13993, bw = 34, q = 3),
      twice, counting K1-K5 launches, beside phase 9's scatter_iid fit of
-     the same data;
+     the same data; the two engines' theta gradients held to each other
+     at MERGED_GATE_THETA, and the sick-factor gate's state logged;
  15. the kernel engine against the plain engine at a fixed point of a
      reduced merged model (n = 5000, k = 100, q = 600);
  16. the tail-term cell: bench_scattered_iid's engine='banded' q = 512
      point (n = 5e4, k = 500, a 515-wide tail on K6/K7);
- 17. a profiled merged-IID Laplace evaluation with its gradient.
+ 17. a profiled merged-IID Laplace evaluation with its gradient at
+     MERGED_GATE_THETA.
 Phase 1 builds csrc/band_kernels.cu (K1-K5, K8-K11) and
 csrc/dense_kernels.cu (K6, K7) with two nvcc processes started together;
 phase 2 also checks K6/K7 against their plain versions on healthy and
@@ -153,6 +155,17 @@ REPLACES.update(CHUNKED.values())
 # JAX package's host path
 MERGED_SMALL_REF = {"mode": (0.96162838, 2.72002588),
                     "lognormconst": -1093.3009974334}
+# a theta of the merged headline whose factor is healthy (smallest pivot
+# ~1e-3) while max|H^{-1}| ~ 1e13, where a gate on |H^{-1}| >= 1e12
+# dropped the log-det's gradient: the merged fit's mode under that gate.
+# The theta gradient there is large (~150), well above the Laplace
+# value's noise, so the two engines' gradients can be held to each other
+MERGED_GATE_THETA = (-0.298, 3.843)
+# phase 14's check at phase 9's mode: the inner Newton with no step floor,
+# stopping after this many steps without a 5% smaller step (or at its
+# cap), and the central-difference step of the Laplace values there
+TIGHT_STALL = 30
+FD_STEP = 1e-2
 
 
 T_START = time.perf_counter()
@@ -258,10 +271,12 @@ def phase_kernels(bk, dev):
     W = BW + 1
     rows = {}
 
-    L, rinv, Y, hld = bk.band_factor(band, C)
-    Lp, rinvp, Yp, hldp = bk.band_factor_plain(band, C)
+    L, rinv, Y, hld, clamped = bk.band_factor(band, C)
+    Lp, rinvp, Yp, hldp, clampedp = bk.band_factor_plain(band, C)
     err = max(check_close("K1 L", L, Lp), check_close("K1 rinv", rinv, rinvp),
               check_close("K1 Y", Y, Yp), check_close("K1 hld", hld, hldp))
+    require(not bool(clamped) and not bool(clampedp),
+            "K1 reports no clamped pivot on a healthy band")
     f8 = 8
     rows["band_factor"] = dict(
         err=err, ms=cuda_ms(lambda: bk.band_factor(band, C)),
@@ -274,8 +289,11 @@ def phase_kernels(bk, dev):
     bad = band.clone()
     bad[10, 0] = -0.8
     bad[40, 0] = 1e-14
-    Lb, _, Yb, hb = bk.band_factor(bad, C)
-    Lbp, _, Ybp, hbp = bk.band_factor_plain(bad, C)
+    Lb, _, Yb, hb, cb = bk.band_factor(bad, C)
+    Lbp, _, Ybp, hbp, cbp = bk.band_factor_plain(bad, C)
+    log(f"  K1 indefinite band: clamped pivot reported by the kernel "
+        f"{bool(cb)}, by the plain version {bool(cbp)}")
+    require(bool(cb) and bool(cbp), "K1 reports the clamped pivot")
     check_close("K1 indefinite L", Lb, Lbp)
     check_close("K1 indefinite Y", Yb, Ybp)
     check_close("K1 indefinite hld", hb, hbp)
@@ -351,8 +369,8 @@ def check_other_shapes(bk, dev):
     for d, bw, q in ((300, 12, 4), (300, BW, 0)):
         _, band, C, _ = spd_problem(dev, d, bw, q, seed=2)
         tag = f"d={d} bw={bw} q={q}"
-        L, rinv, Y, hld = bk.band_factor(band, C)
-        Lp, rinvp, Yp, hldp = bk.band_factor_plain(band, C)
+        L, rinv, Y, hld, _ = bk.band_factor(band, C)
+        Lp, rinvp, Yp, hldp, _ = bk.band_factor_plain(band, C)
         for name, a, b in (("L", L, Lp), ("rinv", rinv, rinvp),
                            ("hld", hld, hldp)):
             check_close(f"K1 {name} {tag}", a, b)
@@ -405,11 +423,14 @@ def check_equal(name, got, want):
 
 def check_batched_against_one_system(bk, bb, tag, bands, Bs):
     """K8-K11 on a batch against their plain versions (RTOL) and, system
-    by system, against K1 (no tail), K2, K3 and K4 bit for bit. Returns
-    the factor and the largest kernel-plain difference per kernel."""
+    by system, against K1 (no tail), K2, K3 and K4 bit for bit. Past
+    bk.SMALL_BW, where K2/K3 sum a row farthest-first and K9/K10 keep the
+    nearest-first generic code, K9/K10 are held per system to K2/K3 at
+    RTOL and K10 to K5 (the same generic code) bit for bit. Returns the
+    factor and the largest kernel-plain difference per kernel."""
     nr, d, _ = bands.shape
-    L, rinv, hld = bb.band_factor_batched(bands)
-    Lp, rinvp, hldp = bb.band_factor_batched_plain(bands)
+    L, rinv, hld, _ = bb.band_factor_batched(bands)
+    Lp, rinvp, hldp, _ = bb.band_factor_batched_plain(bands)
     errs = {"band_factor_batched": max(
         check_close(f"K8 L {tag}", L, Lp),
         check_close(f"K8 rinv {tag}", rinv, rinvp),
@@ -432,17 +453,25 @@ def check_batched_against_one_system(bk, bb, tag, bands, Bs):
         sols.append((B, Y, X))
     none = bands.new_zeros((d, 0))
     same = True
+    one_order = bands.shape[2] - 1 <= bk.SMALL_BW
     for r in range(nr):
-        L1, rinv1, _, hld1 = bk.band_factor(bands[r].contiguous(), none)
+        L1, rinv1, _, hld1, _ = bk.band_factor(bands[r].contiguous(), none)
         same &= (torch.equal(L[r], L1) and torch.equal(rinv[r], rinv1)
                  and torch.equal(hld[r], hld1)
                  and torch.equal(Z[r], bk.band_takahashi(L1, rinv1)))
         for B, Y, X in sols:
             Br = B[r].contiguous()
-            same &= torch.equal(Y[r], bk.band_fwd_solve(L1, rinv1, Br))
-            same &= torch.equal(X[r], bk.band_bwd_solve(L1, rinv1, Br))
-    log(f"  K8-K11 {tag}: every system against K1 (q=0), K2, K3, K4 bit "
-        f"for bit {'ok' if same else 'FAIL'}")
+            Y1 = bk.band_fwd_solve(L1, rinv1, Br)
+            X1 = bk.band_bwd_solve(L1, rinv1, Br)
+            if one_order:
+                same &= torch.equal(Y[r], Y1) and torch.equal(X[r], X1)
+            else:
+                check_close(f"K9 {tag} system {r} against K2", Y[r], Y1)
+                check_close(f"K10 {tag} system {r} against K3", X[r], X1)
+                same &= torch.equal(X[r], bk.band_bwd_multi(L1, rinv1, Br))
+    log(f"  K8-K11 {tag}: every system against K1 (q=0), "
+        + ("K2, K3" if one_order else "K5") + f", K4 bit for bit "
+        f"{'ok' if same else 'FAIL'}")
     require(same, f"{tag}: batched kernels equal the one-system kernels")
     return (L, rinv), errs
 
@@ -524,9 +553,14 @@ def check_one_bad_slot(bb, dev):
     bad = bands.clone()
     bad[slot, 10, 0] = -0.8
     bad[slot, 40, 0] = 1e-14
-    L0, _, hld0 = bb.band_factor_batched(bands)
-    L, rinv, hld = bb.band_factor_batched(bad)
-    Lp, _, hldp = bb.band_factor_batched_plain(bad)
+    L0, _, hld0, c0 = bb.band_factor_batched(bands)
+    L, rinv, hld, c = bb.band_factor_batched(bad)
+    Lp, _, hldp, cp = bb.band_factor_batched_plain(bad)
+    want = [r == slot for r in range(nr)]
+    log(f"  K8 clamped pivots reported per system: kernel {c.tolist()}, "
+        f"plain {cp.tolist()}")
+    require(c.tolist() == want == cp.tolist() and not c0.any(),
+            "K8 reports the clamped system alone")
     check_close("K8 indefinite slot L", L, Lp)
     check_close("K8 indefinite slot hld", hld, hldp)
     require(not torch.equal(L[slot], L0[slot]), "the bad slot was clamped")
@@ -809,10 +843,15 @@ def phase_dense_kernels(cd, dev):
     bad = blk.clone()
     bad[0, 0] = 1e-14                  # under the pivot floor: clamp and cap
     err6 = 0.0
-    for tag, S in (("healthy", blk), ("indefinite", bad)):
-        L, Lp = cd.dense_factor_block(S), cd.dense_factor_block_plain(S)
+    for tag, S, clamps in (("healthy", blk, 0), ("indefinite", bad, 1)):
+        flags = torch.zeros(2, dtype=torch.int32, device=dev)
+        L = cd.dense_factor_block(S, flags[0])
+        Lp = cd.dense_factor_block_plain(S, flags[1])
         err6 = max(err6, check_close(f"K6 {tag}", L, Lp, rtol=DENSE_RTOL))
         log_equal(f"K6 {tag}", L, Lp)
+        require(flags.tolist() == [clamps] * 2, f"K6's clamp flag on the "
+                f"{tag} block is its plain version's ({clamps}): "
+                f"{flags.tolist()}")
     require(float(L.abs().max()) == cd.L_CAP
             and bool((torch.diagonal(L) < 0).any()),
             "the indefinite block met the cap and the clamp")
@@ -831,6 +870,17 @@ def phase_dense_kernels(cd, dev):
     Lk, Lpl = cd.cholesky_blocked(A), cd.cholesky_blocked(A, cd.PLAIN)
     check_close(f"blocked factor dim {DENSE_DIM}", Lk, Lpl, rtol=DENSE_RTOL)
     log_equal("blocked factor", Lk, Lpl)
+    # a pivot under the floor in the last block: the flag of the blocked
+    # factor, kernels and plain
+    Abad = A.clone()
+    Abad[-1, -1] = -1.0
+    flags = torch.zeros(4, dtype=torch.int32, device=dev)
+    cd.cholesky_blocked(A, flag=flags[0])
+    cd.cholesky_blocked(Abad, flag=flags[1])
+    cd.cholesky_blocked(A, cd.PLAIN, flag=flags[2])
+    cd.cholesky_blocked(Abad, cd.PLAIN, flag=flags[3])
+    require(flags.tolist() == [0, 1, 0, 1], f"the blocked factor's clamp "
+            f"flag, kernels and plain, healthy and clamped: {flags.tolist()}")
     for r in (1, DENSE_DIM):
         B = torch.randn((DENSE_DIM, r), generator=g, device=dev,
                         dtype=torch.float64)
@@ -1151,18 +1201,21 @@ def check_band_shape(bk, dev, d, bw, q, seed, m):
     """K1-K5 at (d, bw, q) on the card: the full-size outputs held to
     residuals against the band, the kernels against their plain versions
     bit for bit on the first m columns (all d at m = d), and the
-    full-size forward outputs' first rows equal to the prefix's. Returns
-    per-kernel rows (err, ms, plain_ms, rows the plain version ran on)."""
+    full-size forward outputs' first rows equal to the prefix's; K2 and K3
+    at 3 right-hand sides too. Returns per-kernel rows (err, ms, plain_ms,
+    rows the plain version ran on; ms_r3 for K2/K3)."""
     tag = f"d={d} bw={bw} q={q}"
     band, C = dominant_band(dev, d, bw, q, seed)
     if q > 1:                        # a column past K1's tile meets the cap
         C[:, -1] *= 1e10
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     M = 1000
-    B = torch.randn((d, 1), generator=g, device=dev, dtype=torch.float64)
+    B3 = torch.randn((d, 3), generator=g, device=dev, dtype=torch.float64)
+    B = B3[:, :1].contiguous()
     Z = torch.randn((d, M), generator=g, device=dev, dtype=torch.float64)
     tile = bk._library().bgt_band_factor_tile(bw, q)
-    (L, rinv, Y, hld), k1_ms = timed_call(lambda: bk.band_factor(band, C))
+    (L, rinv, Y, hld, _), k1_ms = timed_call(lambda: bk.band_factor(band,
+                                                                     C))
     log(f"  {tag}: K1 computes {tile} tail columns in its block, K2 the "
         f"other {q - tile}")
     v = torch.randn((d, 2), generator=g, device=dev, dtype=torch.float64)
@@ -1191,8 +1244,10 @@ def check_band_shape(bk, dev, d, bw, q, seed, m):
 
     bp, Cp = band[:m].contiguous(), C[:m].contiguous()
     Bp, Zp = B[:m].contiguous(), Z[:m].contiguous()
-    Lk, rk, Yk, hk = bk.band_factor(bp, Cp)
-    (Lp, rp, Yp, hp), t1 = timed_call(lambda: bk.band_factor_plain(bp, Cp))
+    B3p = B3[:m].contiguous()
+    Lk, rk, Yk, hk, _ = bk.band_factor(bp, Cp)
+    (Lp, rp, Yp, hp, _), t1 = timed_call(lambda: bk.band_factor_plain(bp,
+                                                                      Cp))
     rows = {"band_factor": dict(err=max(
         check_close(f"K1 L {tag} rows {m}", Lk, Lp),
         check_close(f"K1 rinv {tag} rows {m}", rk, rp),
@@ -1208,9 +1263,9 @@ def check_band_shape(bk, dev, d, bw, q, seed, m):
                 torch.cat([Lk[:m - bw].reshape(-1), rk, Yk.reshape(-1)]))
     for name, fn, plain, rhs in (
             ("band_fwd_solve", bk.band_fwd_solve, bk.band_fwd_solve_plain,
-             Bp),
+             B3p),
             ("band_bwd_solve", bk.band_bwd_solve, bk.band_bwd_solve_plain,
-             Bp),
+             B3p),
             ("band_bwd_multi", bk.band_bwd_multi, bk.band_bwd_multi_plain,
              Zp)):
         got = fn(Lk, rk, rhs)
@@ -1218,6 +1273,9 @@ def check_band_shape(bk, dev, d, bw, q, seed, m):
         rows[name] = dict(err=check_close(f"{name} {tag} rows {m}", got,
                                           want), plain_ms=tp)
         check_equal(f"{name} {tag} rows {m}", got, want)
+        if rhs is B3p:               # one right-hand side: column 0's bits
+            check_equal(f"{name} {tag} rows {m}, r = 1",
+                        fn(Lk, rk, Bp)[:, 0], want[:, 0])
     check_equal(f"K2 {tag}: the full solve's first {m} rows equal the "
                 "prefix's", X2[:m], bk.band_fwd_solve(Lk, rk, Bp))
     got = bk.band_takahashi(Lk, rk)
@@ -1236,14 +1294,20 @@ def check_band_shape(bk, dev, d, bw, q, seed, m):
           "band_bwd_multi": cuda_ms(lambda: bk.band_bwd_multi(L, rinv, Z),
                                     n=n),
           "band_takahashi": cuda_ms(lambda: bk.band_takahashi(L, rinv), n=n)}
+    for name, fn in (("band_fwd_solve", bk.band_fwd_solve),
+                     ("band_bwd_solve", bk.band_bwd_solve)):
+        rows[name]["ms_r3"] = cuda_ms(lambda: fn(L, rinv, B3), n=n)
     work = band_work(d, bw, q, M)
     for name, r in rows.items():
         r.update(ms=ms[name], plain_rows=m, shape=(d, bw, q))
         r["bound_ms"], r["bound_by"] = bound(*work[name])
     log(f"  {tag}: ms a launch " + ", ".join(
-        f"{k} {v:.3f}" for k, v in ms.items()) + f" (K1 first call "
-        f"{k1_ms:.1f} ms); plain versions on {m} rows, ms: " + ", ".join(
-        f"{k} {r['plain_ms']:.0f}" for k, r in rows.items()))
+        f"{k} {v:.3f}" for k, v in ms.items()) + ", at r = 3: " + ", ".join(
+        f"{k} {rows[k]['ms_r3']:.3f}" for k in ("band_fwd_solve",
+                                                 "band_bwd_solve"))
+        + f" (K1 first call {k1_ms:.1f} ms); plain versions on {m} rows, "
+        "ms: " + ", ".join(f"{k} {r['plain_ms']:.0f}"
+                           for k, r in rows.items()))
     return rows, (band, C, L, rinv, B, Z)
 
 
@@ -1290,6 +1354,9 @@ def phase_chunked_kernels(bk, dev):
         rows, arrays = check_band_shape(bk, dev, d, bw, q, seed=20 + i, m=m)
         for name, r in rows.items():
             by_shape.setdefault(name, {})[f"{d}x{bw}x{q}"] = r["ms"]
+            if "ms_r3" in r:
+                by_shape.setdefault(name + " r=3", {})[f"{d}x{bw}x{q}"] = (
+                    r["ms_r3"])
         if (d, bw, q) == MERGED_SHAPE:
             merged = rows
             band, C, L, _, B, Z = arrays
@@ -1299,6 +1366,8 @@ def phase_chunked_kernels(bk, dev):
     for name, r in merged.items():
         r["library_ms"] = lib[name]
         r["ms_by_shape"] = by_shape[name]
+        if name + " r=3" in by_shape:
+            r["ms_r3_by_shape"] = by_shape[name + " r=3"]
         log(f"  {CHUNKED[name][0]} at {MERGED_SHAPE}: kernel "
             f"{r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, library "
             f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms "
@@ -1408,14 +1477,29 @@ def phase_merged_headline(tbg, bk, cd, dev, scatter_fit):
         f"{np.round(dmode, 6).tolist()}, lognormconst {dlnc:.6f}"
         + (" -- above 0.1 / 1 nat" if dmode.max() > 0.1 or dlnc > 1 else ""))
     sbe = sm.backend
-    for th in (np.asarray(m.mode), np.asarray(sm.mode)):
-        vm, gm, _ = be.value_and_grad(th, be.init_state())
-        vs, gs, _ = sbe.value_and_grad(th, sbe.init_state())
+    rel = []
+    for th in (np.asarray(MERGED_GATE_THETA), np.asarray(sm.mode),
+               np.asarray(m.mode)):
+        vm, gm, stm = be.value_and_grad(th, be.init_state())
+        vs, gs, sts = sbe.value_and_grad(th, sbe.init_state())
+        gm, gs = gm.cpu().numpy(), gs.cpu().numpy()
+        rel.append(float(np.abs(gm - gs).max() / np.abs(gs).max()))
         log(f"  Laplace nll and gradient at {np.round(th, 6).tolist()}, "
-            f"cold: merged {float(vm):.6f} {np.round(gm.cpu().numpy(), 4)}"
-            f", scatter_iid {float(vs):.6f} "
-            f"{np.round(gs.cpu().numpy(), 4)}")
+            f"cold: merged {float(vm):.6f} {np.round(gm, 4)}, scatter_iid "
+            f"{float(vs):.6f} {np.round(gs, 4)}; gradients differ by "
+            f"{rel[-1]:.3e} of the largest")
         gate_diagnostic(be, th)
+        log_prior_quad("merged", be, stm[0], stm[1], th)
+        log_prior_quad("scatter_iid", sbe.core, sts[0], sts[2], th)
+    tight_fd(be, sbe, np.asarray(sm.mode))
+    # the merged engine's theta gradient at MERGED_GATE_THETA is the
+    # scattered-IID engine's: the half-log-det backward keeps the log-det's
+    # cotangents on this healthy factor. At the modes they are logged, not
+    # held: there the merged value carries the rounding of the expanded
+    # prior quadratic times e^theta_IWP (ROADMAP Queue 3 #1), which the
+    # central differences of tight_fd show.
+    require(rel[0] <= 1e-3, f"the merged theta gradient at "
+            f"{MERGED_GATE_THETA} within 1e-3 of the scattered-IID engine's")
     require((be.d, be.Wl - 1, be.q) == (13993, 34, 3)
             and be.dpad == MERGED_SHAPE[0], "the merged layout")
     require(np.all(np.isfinite(m.mode)) and math.isfinite(m.lognormconst),
@@ -1431,27 +1515,79 @@ def phase_merged_headline(tbg, bk, cd, dev, scatter_fit):
     return fit, launches, wall1, wall2
 
 
+def log_prior_quad(name, be, V, t, th):
+    """The driver's prior quadratic (V' - Z0 t)^T P (V' - Z0 t) at an inner
+    mode, as the engines expand it (fast/iwp.py, fast/banded.py
+    _prior_neg: V'^T P V' - 2 t^T Z0^T P V' + t^T Z0^T P Z0 t, from the
+    host-built P_band, PZ0 and Z0PZ0), and with r = V' - Z0 t formed
+    first. The value carries half of it times e^theta_IWP: the gap of the
+    two forms times that is how far the value's prior term is uncertain
+    in nats."""
+    with torch.no_grad():
+        Vd = V[:be.d]
+        terms = [float(be.prior_quad_V(V)),
+                 float(2.0 * torch.dot(t, be.PZ0.T @ Vd)),
+                 float(t @ (be.Z0PZ0 @ t))]
+        direct = float(be.prior_quad_V(Vd - be.Z0 @ t))
+    expanded = terms[0] - terms[1] + terms[2]
+    half = 0.5 * math.exp(th[0])
+    log(f"    {name} prior quadratic: terms {terms}, expanded {expanded:.6e}"
+        f", with r = V' - Z0 t formed first {direct:.6e}; 0.5 e^theta "
+        f"times the expanded one {half * expanded:.6e}, times the gap "
+        f"{half * (expanded - direct):.3e} nats")
+
+
+def tight_fd(be, sbe, th):
+    """Both engines at theta (phase 9's mode) with the inner Newton run
+    tight (no step floor, TIGHT_STALL stalled steps): the Laplace value,
+    its theta gradient and a central difference of the value with step
+    FD_STEP, warm-started from the centre's inner mode; logged."""
+    from bayesgp_torch.fast import iwp
+    saved = iwp.STEPTOL, iwp.STALL_ITERS
+    iwp.STEPTOL, iwp.STALL_ITERS = 0.0, TIGHT_STALL
+    out = {}
+    try:
+        for name, b in (("merged", be), ("scatter_iid", sbe)):
+            v, g, st = b.value_and_grad(th, b.init_state())
+            fd = []
+            for i in range(len(th)):
+                e = np.zeros(len(th))
+                e[i] = FD_STEP
+                vp = float(b.laplace_nll(th + e, st)[0])
+                vm = float(b.laplace_nll(th - e, st)[0])
+                fd.append((vp - vm) / (2 * FD_STEP))
+            out[name] = (float(v), g.cpu().numpy(), np.asarray(fd))
+    finally:
+        iwp.STEPTOL, iwp.STALL_ITERS = saved
+    log(f"  at phase 9's mode {np.round(th, 6).tolist()}, the inner Newton "
+        f"run tight (no step floor, stop after {TIGHT_STALL} stalled steps "
+        f"or {iwp.MAX_NEWTON}), cold; central difference step {FD_STEP:g}:")
+    for name, (v, g, fd) in out.items():
+        log(f"    {name}: nll {v:.6f}, gradient {np.round(g, 4)}, central "
+            f"difference {np.round(fd, 4)}")
+    (vm_, gm_, fm_), (vs_, gs_, fs_) = out["merged"], out["scatter_iid"]
+    log(f"    merged - scatter_iid: nll {vm_ - vs_:.6f}, gradient "
+        f"{np.round(gm_ - gs_, 4)}, central difference "
+        f"{np.round(fm_ - fs_, 4)}")
+    return out
+
+
 def gate_diagnostic(be, th):
-    """The half-log-det backward's sick-factor gate (|H^{-1}| >= 1e12 on
-    the band's selected entries or the tail block A = Hb^{-1} C S^{-1}
-    drops the log-det's cotangents) at the cold inner mode of theta: the
-    smallest pivot, the largest entry it tests, and the theta gradient
-    with the gate off."""
-    from bayesgp_torch.linalg import band_arrow
+    """The half-log-det backward's sick-factor gate at the cold inner mode
+    of theta: the smallest pivot and whether K1 clamped a pivot, the tail
+    factor left its plain route, or an entry of H^{-1} the backward reads
+    is not finite (the gate drops the log-det's cotangents where any
+    holds)."""
     _, _, (V, t) = be.value_and_grad(th, be.init_state())
     tht = torch.tensor(th, dtype=torch.float64, device=be.device)
     with torch.no_grad():
         af = be.hessian_factor(V, t, tht)[0]
-        peak = float(be.engine.gate_peak(af))
-    saved = band_arrow.SICK_INV
-    band_arrow.SICK_INV = math.inf
-    try:
-        _, g_off, _ = be.value_and_grad(th, be.init_state())
-    finally:
-        band_arrow.SICK_INV = saved
-    log(f"    gate: min pivot {float((af.rinv ** -2).min()):.3e}, max|H^-1| "
-        f"on the tested entries {peak:.3e} (closed at {saved:g}); theta "
-        f"gradient with the gate off {np.round(g_off.cpu().numpy(), 4)}")
+        clamped, left, nonfinite = (bool(x)
+                                    for x in be.engine.gate_reasons(af))
+    state = "closed" if clamped or left or nonfinite else "open"
+    log(f"    gate: min pivot {float((af.rinv ** -2).min()):.3e}; a pivot "
+        f"clamped {clamped}, the tail left its plain route {left}, H^-1 not "
+        f"finite {nonfinite}: the gate is {state}")
 
 
 def phase_merged_fixed_point(tbg, bk, dev):
@@ -1579,9 +1715,10 @@ def main():
     launches.update({CHUNKED[k][0]: v for k, v in mlaunches.items()})
     phase_merged_fixed_point(tbg, bk, dev)
     twall, tail_launches = phase_tail_cell(tbg, bk, cd, dev)
-    log("== phase 17: profiled merged-IID Laplace evaluation")
+    log("== phase 17: profiled merged-IID Laplace evaluation at "
+        f"{MERGED_GATE_THETA} (a fixed theta: fixed work across runs)")
     mbe = mfit.mod.backend
-    mtheta = torch.tensor(mfit.mod.mode, dtype=torch.float64, device=dev)
+    mtheta = torch.tensor(MERGED_GATE_THETA, dtype=torch.float64, device=dev)
     profile_run("one Laplace evaluation with its gradient, cold start, "
                 "merged-IID headline",
                 lambda: mbe.value_and_grad(mtheta, mbe.init_state()))
@@ -1602,6 +1739,8 @@ def main():
         if "shape" in r:        # K1c-K5c: K1-K5 at the merged shape
             row.update(shape=r["shape"], plain_rows=r["plain_rows"],
                        ms_by_shape=r["ms_by_shape"])
+            if "ms_r3_by_shape" in r:   # K2c/K3c at 3 right-hand sides
+                row["ms_r3_by_shape"] = r["ms_r3_by_shape"]
         kernels.append(row)
     log(f"headline fit wall s: first {wall1:.3f}, second {wall2:.3f}")
     log(f"replicate fits, wall s per fit: {per_fit}")

@@ -9,7 +9,11 @@ cotangents of the half log-det 1e-10 against the one-system engine per
 system (same kernels' plain versions; the small Schur products are
 batched there and round differently) and 1e-6 against the JAX block
 engine's f64 autodiff; the given-factor variant equals the plain one
-bit for bit.
+bit for bit. The sick-factor gate per system: in a batch of a healthy
+system, one with a clamped band pivot and one with healthy pivots and
+max|H^{-1}| past 1e12, only the clamped one loses its cotangents, and
+each system's agree with the one-system engine's (the large one's to
+cond(H) eps of the largest).
 
 Three tests, on purpose: pytest-xdist's file scheduler hands out files in
 order of their test counts, and a file of few tests lands at the end of
@@ -79,6 +83,7 @@ def test_cotangents_match_one_system_engine(systems):
                                        (s["ct"][r] * g).numpy(),
                                        rtol=0, atol=1e-10)
     _check_given_factor_variant_equals_plain(s)
+    _check_gate_per_system()
 
 
 def test_cotangents_match_jax_block_vmap_engine(systems):
@@ -109,6 +114,37 @@ def _check_given_factor_variant_equals_plain(s):
     g = torch.autograd.grad((s["ct"] * v).sum(), leaves)
     for a, b in zip(g, s["grads"]):
         assert torch.equal(a, b)
+
+
+def _check_gate_per_system():
+    rng = np.random.default_rng(6)
+    d, bw = 40, 2
+    band, C, Hd, Hfull = _arrow_problem(rng, d, bw, 1)
+    band = band.T.copy()
+    sick = band.copy()
+    sick[10, 0] = -0.8
+    # healthy pivots, tail Schur complement 5e-13: max|H^{-1}| ~ 2e12
+    big_Hd = C.T @ np.linalg.solve(Hfull[:d, :d], C) + 5e-13
+    big_full = np.block([[Hfull[:d, :d], C], [C.T, big_Hd]])
+    assert np.abs(np.linalg.inv(big_full)).max() >= 1e12
+    parts = [(band, C, Hd), (sick, C, Hd), (band, C, big_Hd)]
+    targs = [torch.tensor(np.stack(a)) for a in zip(*parts)]
+    eng = BandArrowBatchedEngine(d, bw, 1, 3)
+    f = eng.factor(*targs)
+    assert f.clamped.tolist() == [False, True, False]
+    assert not f.tail_left.any()
+    leaves = [t.clone().requires_grad_(True) for t in targs]
+    gb = torch.autograd.grad(eng.arrow_half_logdet(*leaves).sum(), leaves)
+    assert all(not g[1].any() for g in gb)
+    one = BandArrowEngine(d, bw, 1)
+    for r, cond in ((0, 1.0), (2, np.linalg.cond(big_full))):
+        tol = max(1e-10, cond * np.finfo(float).eps)
+        lv = [torch.tensor(a).requires_grad_(True) for a in parts[r]]
+        for a, b in zip(gb, torch.autograd.grad(one.arrow_half_logdet(*lv),
+                                                lv)):
+            assert b.abs().max() > 0
+            np.testing.assert_allclose(a[r].numpy(), b.numpy(), rtol=tol,
+                                       atol=tol * float(b.abs().max()))
 
 
 def _check_no_tail():

@@ -50,7 +50,8 @@ def test_plain_versions_against_numpy_and_argument_checks():
 def _check_against_numpy(d, bw, NR):
     rng = np.random.default_rng(d + bw + NR)
     As, _, tb = _problems(rng, NR, d, bw)
-    L, rinv, hld = bb.band_factor_batched(tb)
+    L, rinv, hld, clamped = bb.band_factor_batched(tb)
+    assert not clamped.any()
     assert L.shape == (NR, d, bw + 1) and rinv.shape == (NR, d)
     assert hld.shape == (NR,)
     Z = bb.band_takahashi_batched(L, rinv).numpy()
@@ -83,13 +84,13 @@ def test_system_r_equals_one_system_plain_bit_for_bit():
     d, bw, NR, m = 48, 3, 5, 3
     _, _, tb = _problems(rng, NR, d, bw)
     B = torch.tensor(rng.normal(size=(NR, d, m)))
-    L, rinv, hld = bb.band_factor_batched(tb)
+    L, rinv, hld, _ = bb.band_factor_batched(tb)
     Y = bb.band_fwd_solve_batched(L, rinv, B)
     X = bb.band_bwd_solve_batched(L, rinv, B)
     Z = bb.band_takahashi_batched(L, rinv)
     none = torch.zeros((d, 0), dtype=torch.float64)
     for r in range(NR):
-        L1, rinv1, _, hld1 = bk.band_factor(tb[r].contiguous(), none)
+        L1, rinv1, _, hld1, _ = bk.band_factor(tb[r].contiguous(), none)
         assert torch.equal(L[r], L1) and torch.equal(rinv[r], rinv1)
         assert torch.equal(hld[r], hld1)
         assert torch.equal(Y[r], bk.band_fwd_solve(L1, rinv1,
@@ -110,16 +111,18 @@ def _check_clamp_in_one_slot():
     bad = tb.clone()
     bad[slot, 10, 0] = -0.8
     bad[slot, 40, 0] = 1e-14
-    L0, rinv0, hld0 = bb.band_factor_batched(tb)
-    L, rinv, hld = bb.band_factor_batched(bad)
+    L0, rinv0, hld0, _ = bb.band_factor_batched(tb)
+    L, rinv, hld, clamped = bb.band_factor_batched(bad)
+    assert clamped.tolist() == [r == slot for r in range(NR)]
     assert torch.isfinite(L).all() and torch.isfinite(hld).all()
     assert float(L.abs().max()) <= bk.L_CAP
     for r in range(NR):
         if r != slot:
             assert torch.equal(L[r], L0[r]) and torch.equal(hld[r], hld0[r])
-    L1, rinv1, _, hld1 = bk.band_factor(
+    L1, rinv1, _, hld1, clamped1 = bk.band_factor(
         bad[slot].contiguous(), torch.zeros((d, 0), dtype=torch.float64))
     assert torch.equal(L[slot], L1) and torch.equal(hld[slot], hld1)
+    assert bool(clamped1)
     assert not torch.equal(L[slot], L0[slot])
     B = torch.tensor(rng.normal(size=(NR, d, 2)))
     assert torch.isfinite(bb.band_fwd_solve_batched(L, rinv, B)).all()
@@ -152,7 +155,7 @@ def _pallas_and_port():
         Z=np.asarray(jbb.btakahashi_fn(d, bw, G, interpret=True)(Lh),
                      np.float64)[W:W + d, :NR * G].reshape(d, NR, G)
         .transpose(1, 0, 2)[:, :, :bw + 1])
-    L, rinv, hld = bb.band_factor_batched(tb)
+    L, rinv, hld, _ = bb.band_factor_batched(tb)
     tB = torch.tensor(B)
     port = dict(L=L.numpy(), hld=hld.numpy(),
                 y=bb.band_fwd_solve_batched(L, rinv, tB).numpy(),
@@ -175,7 +178,7 @@ def test_plain_versions_match_pallas_interpret():
 def _check_arguments():
     """Wrappers refuse what the kernels do not take."""
     tb = torch.ones((2, 8, 4), dtype=torch.float64)
-    L, rinv, _ = bb.band_factor_batched(tb)
+    L, rinv, _, _ = bb.band_factor_batched(tb)
     with pytest.raises(TypeError):
         bb.band_factor_batched(tb.float())
     with pytest.raises(ValueError):

@@ -6,10 +6,17 @@ Tolerances: K1-K3 are double-float on the TPU side (~2^-48 relative),
 so rtol 1e-10; K4 and K5 run in f32 there, so rtol 1e-5 (with an
 absolute floor of 1e-5 of the largest entry, for entries near zero),
 and 1e-10 against dense f64 numpy.
+
+The summation orders of the plain solves, at bw = 12 and 40 (d = 200,
+past SMALL_BW): K2/K3 farthest-first and K5 nearest-first, each equal
+bit for bit to a numpy loop in that order, and K2/K3 against
+scipy.linalg.solve_triangular on the dense factor at rtol 1e-12 (a
+well-conditioned band, f64 both sides).
 """
 import numpy as np
 import pytest
 import jax.numpy as jnp
+import scipy.linalg
 import torch
 
 from bayesgp_tpu.linalg import band_kernels as jbk
@@ -54,8 +61,8 @@ def _jax_factor(band, C, d, bw):
 
 
 def _torch_factor(band, C):
-    L, rinv, Y, hld = bk.band_factor(torch.tensor(band.T.copy()),
-                                     torch.tensor(C))
+    L, rinv, Y, hld, _ = bk.band_factor(torch.tensor(band.T.copy()),
+                                        torch.tensor(C))
     return L.numpy(), rinv, Y.numpy(), float(hld), L
 
 
@@ -173,8 +180,52 @@ def test_guarded_factor_finite_on_indefinite(kind):
     assert abs(hld - hldj) < 1e-6 * max(1.0, abs(hldj))
 
 
+def _loop_solve(L, rinv, B, trans, far_first):
+    """numpy loop of the band substitution, a row's products subtracted
+    farthest-first or nearest-first (the plain versions' orders)."""
+    d, W = L.shape
+    X = np.zeros_like(B)
+    for j in (range(d - 1, -1, -1) if trans else range(d)):
+        ts = range(1, min(W - 1, d - 1 - j if trans else j) + 1)
+        acc = B[j].copy()
+        for t in (reversed(ts) if far_first else ts):
+            acc = acc - ((L[j, t] * X[j + t]) if trans
+                         else (L[j - t, t] * X[j - t]))
+        X[j] = acc * rinv[j]
+    return X
+
+
+def _check_wide_band_orders():
+    for bw in (12, 40):
+        rng = np.random.default_rng(bw)
+        d = 200
+        _, band = _spd_band(rng, d, bw)
+        L, rinv, _, _, _ = bk.band_factor(torch.tensor(band.T.copy()),
+                                          torch.zeros((d, 0),
+                                                      dtype=torch.float64))
+        B = rng.normal(size=(d, R))
+        Ln, rn = L.numpy(), rinv.numpy()
+        Ld = _dense_band(Ln, bw)
+        for plain, trans, far in ((bk.band_fwd_solve_plain, False, True),
+                                  (bk.band_bwd_solve_plain, True, True),
+                                  (bk.band_bwd_multi_plain, True, False)):
+            X = plain(L, rinv, torch.tensor(B)).numpy()
+            np.testing.assert_array_equal(X, _loop_solve(Ln, rn, B, trans,
+                                                         far))
+            # the two orders round differently here
+            assert not np.array_equal(X, _loop_solve(Ln, rn, B, trans,
+                                                     not far))
+            if far:
+                np.testing.assert_allclose(
+                    X, scipy.linalg.solve_triangular(Ld, B, lower=True,
+                                                     trans=trans),
+                    rtol=1e-12, atol=1e-12 * np.abs(X).max())
+
+
 def test_wrappers_check_arguments():
-    """Wrappers refuse what the kernels do not take."""
+    """Wrappers refuse what the kernels do not take; and the plain solves'
+    summation orders past SMALL_BW (_check_wide_band_orders)."""
+    _check_wide_band_orders()
     band = torch.ones((8, 4), dtype=torch.float64)
     with pytest.raises(TypeError):
         bk.band_factor(band.float(), torch.zeros((8, 0)))

@@ -11,11 +11,11 @@ CPU in f64.
    draws relative to their largest entry); draws and the half-log-det
    gradient against the JAX engine 1e-5 (K5 and K4 compute in f32 on the
    TPU; the port's are held to dense f64 at 1e-10 / 1e-9). The
-   sick-factor gate on a system with healthy band pivots and a tail
-   Schur complement s0: at s0 = 1e-14 (|H^{-1}| past 1e12) every
-   cotangent is zero; at s0 = 1e-6 the gate is the identity (the
-   cotangents equal the ungated ones bit for bit, Hd's is 0.5 / s0 to
-   1e-6).
+   sick-factor gate on a system with healthy band pivots and |H^{-1}|
+   past 1e12 (2e-12 times a well-conditioned system): the cotangents are
+   kept and equal the JAX package's BlockEngine's (no gate) to cond(H)
+   eps of the largest, Hd's is 0.5 / s (s the tail Schur complement) to
+   1e-12; with a clamped band pivot every cotangent is zero.
 2. The merged problem of tests/test_iid_band.py (n = 600, IWP2 k = 12, 30
    x-clustered levels, a lazy IID term merged into the band): the build
    arrays equal the JAX package's to 1e-12 of each array's scale; at a
@@ -40,11 +40,11 @@ CPU in f64.
    reference order. Then a tail-term model built through model_fit's
    route (IWP k = 15 + a 5-level IID term, n = 200, engine='banded'):
    Laplace nll and gradient at three thetas, rtol 1e-9. The gate is open
-   at the fit's mode; with its threshold lowered the fit's warning fires.
-   And the routes,
-   each a build only: 'auto' merges > 512 clustered levels, densifies
-   600 scattered levels into the tail with a warning, and an sGP driver
-   and the Gaussian family raise naming their ROADMAP item.
+   at the fit's mode; with a pivot floor above every pivot K1 clamps and
+   the fit's warning fires. And the routes, each a build only: 'auto'
+   merges > 512 clustered levels, densifies 600 scattered levels into the
+   tail with a warning, and an sGP driver and the Gaussian family raise
+   naming their ROADMAP item.
 
 Every JAX program is traced once in the module fixture and compiled with
 XLA's CPU optimizations off (_jax_quick.XLA_QUICK), on threads beside the
@@ -100,6 +100,26 @@ def _arrow_problem(rng, d, bw, q):
     Hq = rng.normal(size=(q, q))
     Hd = Hq @ Hq.T + np.eye(q) + C.T @ np.linalg.solve(A, C)
     return band, C, Hd, np.block([[A, C], [C.T, Hd]])
+
+
+# the planted sick-factor-gate system of test 1: (d, bw, q)
+GATE_SHAPE = (40, 2, 1)
+
+
+def _planted_gate_system(rng, scale=2e-12, s0=0.4):
+    """(band (d, bw+1), C, Hd) and the full matrix of scale * H0, H0 a
+    well-conditioned system with band pivots near 1 whose tail Schur
+    complement is s0: band pivots above PIVOT_FLOOR, |H^{-1}| ~ 1 /
+    (scale s0)."""
+    d, bw, _ = GATE_SHAPE
+    band = np.zeros((d, bw + 1))
+    band[:, 0], band[:-1, 1], band[:-2, 2] = 1.0, 0.2, 0.05
+    Hb = sum(np.diag(band[:d - o, o], -o) for o in range(bw + 1))
+    Hb = Hb + np.tril(Hb, -1).T
+    C = 0.3 * rng.normal(size=(d, 1))
+    Hd = C.T @ np.linalg.solve(Hb, C) + s0
+    band, C, Hd, Hb = (scale * a for a in (band, C, Hd, Hb))
+    return (band, C, Hd), np.block([[Hb, C], [C.T, Hd]])
 
 
 def _merged_data(n=600, n_lev=30, seed=0):
@@ -158,6 +178,14 @@ def _arrow_program(d, bw, q, chunk):
                       (q, 16))
 
 
+def _gate_program():
+    """The JAX package's BlockEngine half-log-det gradient at GATE_SHAPE."""
+    d, bw, q = GATE_SHAPE
+    eng = jba.make_engine(d, bw, q, 4, force="block")
+    return (jax.grad(eng.arrow_half_logdet, argnums=(0, 1, 2)),
+            _spec((bw + 1, d), (d, q), (q, q)))
+
+
 def _vg_program(jbe):
     """The JAX backend's Laplace nll and theta gradient, warm-started."""
     return (jax.value_and_grad(
@@ -200,7 +228,7 @@ def jax_ref():
                  asm["bf_prec"], asm["bf_mean"])
     programs = {shape: _arrow_program(*shape) for shape in ARROW_SHAPES}
     programs.update(
-        vg=_vg_program(jbe), tail_vg=_vg_program(jte),
+        vg=_vg_program(jbe), tail_vg=_vg_program(jte), gate=_gate_program(),
         point=(lambda V, t, th: (jbe.neg_log_post(V, t, th),
                                  jbe.grad_W(V, t, th),
                                  jbe.newton_step(V, t, th)),
@@ -292,37 +320,45 @@ def test_engine_matches_jax_chunked_engine(jax_ref):
         np.concatenate([zb.numpy(), zd.numpy()]),
         np.linalg.solve(Hfull, np.concatenate([rb, rd])), rtol=1e-9,
         atol=1e-11)
-    # the sick-factor gate: a system with healthy band pivots whose tail
-    # Schur complement s0 is tiny has |H^{-1}| ~ 1 / s0; at 1e12 and past
-    # it the half-log-det's cotangents are dropped, below it the gate is
-    # the identity
-    d, bw = 40, 2
-    band = np.zeros((d, bw + 1))
-    band[:, 0], band[:-1, 1], band[:-2, 2] = 1.0, 0.2, 0.05
-    Hb = sum(np.diag(band[:d - o, o], -o) for o in range(bw + 1))
-    Hb = Hb + np.tril(Hb, -1).T
-    C = 0.3 * rng.normal(size=(d, 1))
+    # the sick-factor gate closes on a sick factor only: a system with
+    # band pivots near 2e-12 (above the 1e-12 floor) whose tail Schur
+    # complement 8e-13 puts max|H^{-1}| past 1e12 keeps its cotangents;
+    # they equal the JAX package's BlockEngine's (f64 autodiff through
+    # its block factorization, no gate) to cond(H) eps of the largest,
+    # the first-order error of H^{-1} from a backward-stable
+    # factorization (the system is 2e-12 times a well-conditioned one:
+    # cond ~ 100, rtol ~ 2e-14), and Hd's is 0.5 / s (s the Schur
+    # complement); a band with a clamped pivot has every cotangent
+    # dropped
+    scale = 2e-12
+    (band, C, Hd), Hfull = _planted_gate_system(np.random.default_rng(9),
+                                                scale)
+    d, bw = band.shape[0], band.shape[1] - 1
     eng = tba.BandArrowEngine(d, bw, 1)
-    for s0, closed in ((1e-14, True), (1e-6, False)):
-        Hd = C.T @ np.linalg.solve(Hb, C) + s0
-        leaves = [torch.tensor(a).requires_grad_(True)
-                  for a in (band, C, Hd)]
-        f = eng.factor(*(x.detach() for x in leaves))
-        assert float((f.rinv ** -2).min()) > 0.5     # healthy band pivots
-        assert (float(eng.gate_peak(f)) >= tba.SICK_INV) == closed
-        g = torch.autograd.grad(eng.arrow_half_logdet(*leaves), leaves)
-        if closed:
-            assert all(not x.any() for x in g)
-        else:
-            assert abs(float(g[2][0, 0]) * 2.0 * s0 - 1.0) < 1e-6
-            saved = tba.SICK_INV
-            tba.SICK_INV = float("inf")
-            try:
-                g_off = torch.autograd.grad(eng.arrow_half_logdet(*leaves),
-                                            leaves)
-            finally:
-                tba.SICK_INV = saved
-            assert all(torch.equal(a, b) for a, b in zip(g, g_off))
+    leaves = [torch.tensor(a).requires_grad_(True) for a in (band, C, Hd)]
+    f = eng.factor(*(x.detach() for x in leaves))
+    assert float((f.rinv ** -2).min()) > 0.5 * scale   # healthy pivots
+    assert float((f.rinv ** -2).min()) > tbk.PIVOT_FLOOR
+    assert not any(bool(x) for x in eng.gate_reasons(f))
+    assert np.abs(np.linalg.inv(Hfull)).max() >= 1e12
+    g = torch.autograd.grad(eng.arrow_half_logdet(*leaves), leaves)
+    g_ref = programs["gate"](band.T.copy(), C, Hd)
+    tol = np.linalg.cond(Hfull) * np.finfo(float).eps
+    assert tol < 1e-13
+    for gt, gr in zip(g, (np.asarray(g_ref[0]).T, g_ref[1], g_ref[2])):
+        gr = np.asarray(gr)
+        np.testing.assert_allclose(gt.numpy(), gr, rtol=tol,
+                                   atol=tol * np.abs(gr).max())
+    Hb = Hfull[:d, :d]
+    s_tail = float(Hd[0, 0] - C[:, 0] @ np.linalg.solve(Hb, C[:, 0]))
+    assert abs(float(g[2][0, 0]) * 2.0 * s_tail - 1.0) < 1e-12
+    sick = band.copy()
+    sick[10, 0] = -0.8 * scale
+    leaves = [torch.tensor(a).requires_grad_(True) for a in (sick, C, Hd)]
+    f = eng.factor(*(x.detach() for x in leaves))
+    assert bool(eng.gate_reasons(f)[0])          # a pivot was clamped
+    g = torch.autograd.grad(eng.arrow_half_logdet(*leaves), leaves)
+    assert all(not x.any() for x in g)
 
     # a band wider than the kernels take is refused in the wrapper
     with pytest.raises(ValueError, match="outside"):
@@ -418,13 +454,14 @@ def test_fit_tail_terms_and_routes(jax_ref, merged, monkeypatch):
     assert np.all(np.isfinite(pred["mean"]))
     assert "theta(g)" in fit.summary()
     # the gate is open at this mode, and a fit warns where it is closed
-    assert not be.gate_closed(mod.mode, mod.mode_state)
+    assert not any(be.gate_reasons(mod.mode, mod.mode_state))
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         tapi._warn_sick_gate(be, mod)
-    monkeypatch.setattr(tba, "SICK_INV", 1.0)
-    assert be.gate_closed(mod.mode, mod.mode_state)
-    with pytest.warns(RuntimeWarning, match="sick-factor gate"):
+    # with a pivot floor above every pivot K1 clamps them all
+    monkeypatch.setattr(tbk, "PIVOT_FLOOR", 2.0)
+    assert be.gate_reasons(mod.mode, mod.mode_state)[0]
+    with pytest.warns(RuntimeWarning, match="a band pivot was clamped"):
         tapi._warn_sick_gate(be, mod)
     monkeypatch.undo()
 

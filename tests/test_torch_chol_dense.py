@@ -39,21 +39,23 @@ def _close(got, want, rtol):
 
 
 def test_block_kernels_match_dd_kernels():
-    """K6 (healthy and indefinite blocks) and K7 (forward, and transposed
-    against the JAX package's row/column flip) against the interpret-mode
-    double-float kernels."""
+    """K6 (healthy and indefinite blocks, with the clamp flag it reports)
+    and K7 (forward, and transposed against the JAX package's row/column
+    flip) against the interpret-mode double-float kernels."""
     healthy = _spd(NB, seed=1)
     # indefinite: a pivot under the 1e-12 floor, whose column is then
     # capped at 1e3, makes every later pivot negative and clamped
     bad = healthy.copy()
     bad[0, 0] = 1e-14
     factor = chol_dd.factor_block_fn(True)
-    for S in (healthy, bad):
+    for S, clamps in ((healthy, 0), (bad, 1)):
         Lt = factor(*dd.from_f64(jnp.asarray(S)))
         want = np.asarray(dd.to_f64(Lt)).T
-        got = cd.dense_factor_block(torch.tensor(S)).numpy()
+        flag = torch.zeros((), dtype=torch.int32)
+        got = cd.dense_factor_block(torch.tensor(S), flag).numpy()
         _close(got, want, 1e-13)
         assert np.array_equal(got, np.tril(got))
+        assert int(flag) == clamps      # K6 reports the clamp it made
     assert np.abs(got).max() == cd.L_CAP         # the cap bound
     assert (np.diag(got) < 0).any()              # clamped negative pivots
 
