@@ -30,13 +30,14 @@ from .model.build import ModelData
 
 # backend fields carried as arrays (FastIWPBackend of either package)
 ARRAY_FIELDS = ("valsT", "start", "seg_lo", "seg_hi", "XFpT", "Z0", "PZ0",
-                "Z0PZ0", "P_band", "Tdiags", "prior_diag_tail",
+                "Z0PZ0", "P_band", "Tdiags", "prior_w", "prior_diag_tail",
                 "prior_mean_tail")
 # ModelData fields the likelihood and the hyperprior read
 MODEL_FIELDS = ("y", "size", "logPdet", "u", "alpha")
 # BandedBackend fields (either package): arrays, optional arrays, scalars
 BANDED_FIELDS = ("valsT", "start", "XFpT", "Z0", "PZ0", "Z0PZ0", "P_band",
-                 "Tdiags", "prior_diag_tail", "prior_mean_tail", "ref_perm")
+                 "Tdiags", "prior_w", "prior_diag_tail", "prior_mean_tail",
+                 "ref_perm")
 BANDED_OPTIONAL = ("prior_diag_band", "Z0PZ0_pad")
 BANDED_SCALARS = ("drv_theta", "Wl", "G", "d", "dpad", "d_drv",
                   "logPdet_drv", "logdetT", "w_real")
@@ -63,7 +64,7 @@ def fast_iwp_arrays(be) -> dict:
     """Host numpy arrays of a FastIWPBackend: ARRAY_FIELDS, the
     MODEL_FIELDS of its (row-sorted) ModelData, and the scalars p, d,
     dpad, family, logdetT, row_order."""
-    out = {f: _host(getattr(be, f)) for f in ARRAY_FIELDS}
+    out = {f: _field(be, f) for f in ARRAY_FIELDS}
     out.update({f: _host(getattr(be.md, f)) for f in MODEL_FIELDS})
     out.update(p=int(be.p), d=int(be.d), dpad=int(be.dpad),
                family=int(be.md.family), logdetT=float(be.logdetT),
@@ -109,13 +110,15 @@ def scatter_iid_from_arrays(arrs: dict, term=None, device="cuda"):
                                  logPdet_iid=arrs["logPdet_iid"])
 
 
-def banded_arrays(be) -> dict:
+def banded_arrays(be, knots=None) -> dict:
     """Host arrays of a BandedBackend (either package's): BANDED_FIELDS,
     BANDED_OPTIONAL (None without padded merged slots), BANDED_SCALARS,
     the tail and diagonal terms as dicts of their fields, and the
-    MODEL_FIELDS and layout of its (row-sorted) ModelData."""
+    MODEL_FIELDS and layout of its (row-sorted) ModelData. `knots`: the
+    driver's, for a backend that holds neither prior_w nor its term (the
+    JAX package's)."""
     md = be.md
-    out = {f: _host(getattr(be, f)) for f in BANDED_FIELDS}
+    out = {f: _field(be, f, knots) for f in BANDED_FIELDS}
     for f in BANDED_OPTIONAL:
         v = getattr(be, f)
         out[f] = None if v is None else _host(v)
@@ -175,6 +178,28 @@ def replicate_responses(ys, be) -> np.ndarray:
     if ys.ndim != 2 or ys.shape[1] != n:
         raise ValueError(f"responses must be (R, {n}), got {ys.shape}")
     return ys
+
+
+def driver_prior_w(be, knots=None) -> np.ndarray:
+    """(d,) weights w of the driver prior P = T^T diag(w) T of a
+    single-IWP or banded backend of either package: its prior_w, or, for
+    the JAX package's (which holds no w), diff of the driver's knots
+    (`knots`, else be.term.knots) at stride G, 0 on a merged band's level
+    and padded columns."""
+    if getattr(be, "prior_w", None) is not None:
+        return _host(be.prior_w)
+    if knots is None:
+        knots = be.term.knots
+    w = np.zeros(int(be.d))
+    G, d_drv = int(getattr(be, "G", 1)), int(getattr(be, "d_drv", be.d))
+    w[np.arange(d_drv) * G] = np.diff(np.asarray(knots, np.float64))
+    return w
+
+
+def _field(be, f, knots=None):
+    if f == "prior_w":
+        return driver_prior_w(be, knots)
+    return _host(getattr(be, f))
 
 
 def _host(a):

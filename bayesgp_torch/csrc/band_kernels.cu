@@ -11,9 +11,10 @@
 // refused launch reaches the caller. The library is built with
 // -fmad=false: every product is rounded before it is added, as in the
 // plain PyTorch versions beside the wrappers, and each kernel sums in the
-// same order as its plain version, so the two agree bit for bit. (The
-// solves K2/K3 sum a row nearest-first up to SMALL_BW and farthest-first
-// above it; K5 and the batched K9/K10 nearest-first at every width.)
+// same order as its plain version, so the two agree bit for bit. (K3
+// sums a row farthest-first at every width, K2 nearest-first up to
+// SMALL_BW and farthest-first above it; K5 and the batched K9/K10
+// nearest-first at every width.)
 //
 // What these replace, and what bounds them on this card
 // ------------------------------------------------------
@@ -68,8 +69,11 @@
 //       Y[j] = (C[j] - sum L[j, j-t] Y[j-t]) / L_jj of the previous
 //       chunk meanwhile, one thread per tail column; the log pivots are
 //       taken by the whole block after the loop.
-//   K2/K3/K5  one thread per right-hand side with its last bw solution
+//   K2/K5  one thread per right-hand side with its last bw solution
 //       values in registers.
+//   K3  the same, but a row's products are subtracted farthest-first,
+//       so only the last one waits on the row just solved, and its tiles
+//       of rows are copied by cp.async one tile ahead (band_bwd_far).
 // Wider bands take generic kernels: threads across one column's band
 // entries and tail columns (K1) and a shared-memory ring for the window
 // (K5, the batched K9/K10 and K1's tail solve). There a row's sum puts
@@ -403,10 +407,11 @@ __global__ void band_factor_batched_kernel(const double* __restrict__ bands,
                    piv + od, hld + r, flag + r, d, bw, 0, sm);
 }
 
-// ------------------------------------------------ K2, K3, K5, bw <= 8 --
+// ---------------------------------------- K2, K5, K9, K10, bw <= 8 --
 // One thread per right-hand-side column with its last BW solution values
 // in registers; the block stages STAGE rows of the multipliers, 1/L_jj
-// and its right-hand sides at a time.
+// and its right-hand sides at a time. A row's products are subtracted
+// nearest-first. (K3 has its own kernel, band_bwd_far, below.)
 template <int BW>
 __device__ __forceinline__ void fwd_small(const double* __restrict__ L,
                                           const double* __restrict__ rinv,
@@ -505,15 +510,6 @@ __device__ __forceinline__ void bwd_small(const double* __restrict__ L,
             X[(size_t)j * r + c] = v;
         }
     }
-}
-
-template <int BW>
-__global__ void band_bwd_small(const double* __restrict__ L,
-                               const double* __restrict__ rinv,
-                               const double* __restrict__ B,
-                               double* __restrict__ X, int d, int r) {
-    extern __shared__ double sm[];
-    bwd_small<BW>(L, rinv, B, X, d, r, sm);
 }
 
 template <int BW>
@@ -882,6 +878,94 @@ band_solve_warp(const double* __restrict__ L,
     cp_async_wait<0>();
 }
 
+// -------------------------------------------------------- K3, bw <= 8 --
+// One thread per right-hand-side column with x_{j+1} .. x_{j+BW} in
+// registers, as bwd_small, but a row's products are subtracted
+// farthest-first (x_{j+BW} first, x_{j+1} last): all but the last use
+// values found rows ago, so the chain from x_{j+1} to x_j is one
+// multiply, one subtract and the scale by 1/L_jj, and the other
+// products of the row are made while the row before is solved. Tiles of
+// `ft` rows (L's rows, their 1/L_jj and the block's right-hand sides)
+// are copied by cp.async into one of two buffers while the other is
+// solved: every thread starts the copy of tile k + 1 before tile k is
+// solved, and the one barrier a tile comes after the copy has had a
+// whole tile to land, so the solving thread never waits on memory.
+template <int BW>
+__global__ void __launch_bounds__(RHS_THREADS)
+band_bwd_far(const double* __restrict__ L, const double* __restrict__ rinv,
+             const double* __restrict__ B, double* __restrict__ X, int d,
+             int r, int ft) {
+    constexpr int W = BW + 1;
+    extern __shared__ double sm[];
+    const int nt = blockDim.x, tx = threadIdx.x;
+    const int c0 = blockIdx.x * nt;
+    const int nc = min(nt, r - c0);      // this block's right-hand sides
+    const int c = c0 + tx;
+    const int per = ft * (W + 1 + nt);   // doubles in one buffer
+    const int ntiles = (d + ft - 1) / ft;
+    // tile k holds rows [max(0, d - (k + 1) ft), d - k ft)
+    auto stage = [&](int k) {
+        if (k < ntiles) {
+            double* Ls = sm + (k & 1) * per;
+            double* Rs = Ls + ft * W;
+            double* Bs = Rs + ft;
+            const int j1 = d - k * ft, j0 = max(0, j1 - ft);
+            const int rows = j1 - j0;
+            if (k == 0) {                // L[j, t] with j + t >= d: zeros
+                for (int i = tx; i < rows * W; i += nt)
+                    cp_async8_or_zero(Ls + i, L + (size_t)j0 * W + i,
+                                      j0 + i / W + i % W < d);
+            } else {
+                for (int i = tx; i < rows * W; i += nt)
+                    cp_async8(Ls + i, L + (size_t)j0 * W + i);
+            }
+            for (int i = tx; i < rows; i += nt)
+                cp_async8(Rs + i, rinv + j0 + i);
+            if (nc == nt) {
+                for (int i = 0; i < rows; ++i)
+                    cp_async8(Bs + i * nt + tx, B + (size_t)(j0 + i) * r + c);
+            } else {
+                for (int e = tx; e < rows * nc; e += nt) {
+                    const int i = e / nc, cc = e - i * nc;
+                    cp_async8(Bs + i * nt + cc,
+                              B + (size_t)(j0 + i) * r + c0 + cc);
+                }
+            }
+        }
+        cp_async_commit();
+    };
+    double w[BW];                        // X[j+1 .. j+BW]
+#pragma unroll
+    for (int k = 0; k < BW; ++k) w[k] = 0.0;
+    stage(0);
+    for (int k = 0; k < ntiles; ++k) {
+        cp_async_wait<0>();              // tile k, this thread's copies
+        __syncthreads();                 // every thread's; tile k - 1 done
+        stage(k + 1);                    // into tile k - 1's buffer
+        if (tx >= nc) continue;
+        const double* Ls = sm + (k & 1) * per;
+        const double* Rs = Ls + ft * W;
+        const double* Bs = Rs + ft;
+        const int j1 = d - k * ft, j0 = max(0, j1 - ft);
+        // rows past d hold x = 0 and their entries of L were staged as
+        // zeros: acc - 0 * 0 is acc, so no row needs a bound check
+#pragma unroll 4
+        for (int i = j1 - j0 - 1; i >= 0; --i) {
+            const int j = j0 + i;
+            const double* Lr = Ls + i * W;
+            double acc = Bs[i * nt + tx];
+#pragma unroll
+            for (int t = BW; t >= 1; --t) acc -= Lr[t] * w[t - 1];
+            const double v = acc * Rs[i];
+#pragma unroll
+            for (int t = BW - 1; t > 0; --t) w[t] = w[t - 1];
+            w[0] = v;
+            X[(size_t)j * r + c] = v;
+        }
+    }
+    cp_async_wait<0>();
+}
+
 // ---------------------------------------------------------------- K4 --
 // Z[j, o] = (H^{-1})[j+o, j], by the backward recurrence
 //   Z[j, o] = -sum_t (L[j+t, j] rinv_j) S(j+t, j+o)      (o = 1..bw)
@@ -1004,6 +1088,11 @@ cudaError_t launch_factor_batched_small(const double* bands, double* L,
     return cudaGetLastError();
 }
 
+// threads of a K3, K9 or K10 block: one a right-hand side, whole warps
+int batched_rhs_threads(int r) {
+    return r < RHS_THREADS ? round_threads(r) : RHS_THREADS;
+}
+
 template <int BW>
 cudaError_t launch_rhs_small(int kind, const double* L, const double* rinv,
                              const double* B, double* X, int d, int r,
@@ -1013,19 +1102,20 @@ cudaError_t launch_rhs_small(int kind, const double* L, const double* rinv,
         band_fwd_small<BW><<<grid, RHS_THREADS, rhs_smem(BW, 0), st>>>(
             L, rinv, B, X, d, r, cap);
     } else if (kind == 1) {
-        band_bwd_small<BW><<<grid, RHS_THREADS, rhs_smem(BW + 1, 0), st>>>(
-            L, rinv, B, X, d, r);
+        // K3: two tiles of ft rows, ft * nt = 4096 (ft <= 128)
+        const int nt = batched_rhs_threads(r);
+        const int ft = min(128, 4096 / nt);
+        const size_t smem = 2 * sizeof(double) * ft * (BW + 2 + nt);
+        const cudaError_t e = allow_smem(band_bwd_far<BW>, smem);
+        if (e != cudaSuccess) return e;
+        band_bwd_far<BW><<<(r + nt - 1) / nt, nt, smem, st>>>(
+            L, rinv, B, X, d, r, ft);
     } else {
         band_bwd_multi_small<BW>
             <<<grid, RHS_THREADS, rhs_smem(BW + 1, 0), st>>>(
                 L, rinv, B, X, d, r);
     }
     return cudaGetLastError();
-}
-
-// threads of a K9/K10 block: one a right-hand side, whole warps
-int batched_rhs_threads(int r) {
-    return r < RHS_THREADS ? round_threads(r) : RHS_THREADS;
 }
 
 template <int BW>

@@ -36,21 +36,24 @@
 // the trailing block, with two barriers a column: one block on one SM.
 // K7 moves the 128 KB block, r columns in and r columns out, and does
 // 128^2 r flops: at r = 2051 ~4.3 MB and 34 MFLOP, ~1.3 us at the
-// memory rate. Its floor is the forward substitution of one column:
-// 8,128 dependent multiply-subtracts, each waiting on the last.
+// memory rate. Its floor is the substitution of one column, 128 steps
+// that each wait on the last.
 //
 // Design. K6: one block of 512 threads holds the block in 128 KB of
 // dynamic shared memory (above the 48 KB default, so the entry point
 // raises the limit with cudaFuncSetAttribute). For each column every
 // thread recomputes the clamped pivot from shared memory (no barrier
 // for it), the threads scale the column into a shared vector, then a
-// 32 x 16 thread grid updates the lower trailing triangle. K7: the lower
-// triangle of L (packed, 66 KB) and the reciprocal pivots live in shared
-// memory; each thread carries one right-hand column through the
-// substitution with its solution column in shared memory, and the grid
-// covers the columns in tiles of SOLVE_COLS, so r = 2051 spreads over 33
-// multiprocessors.
+// 32 x 16 thread grid updates the lower trailing triangle. K7: a block
+// of SOLVE_WARPS warps stages the lower triangle of L (packed, 66 KB)
+// and the reciprocal pivots into shared memory, then each warp solves
+// one right-hand column by a right-looking substitution (the kernel's
+// comment): the chain from x_{j-1} to x_j is one multiply, one subtract,
+// the scale by 1/L_jj and a shuffle, 128 steps in all, where one
+// thread a column would run 8,128 dependent multiply-subtracts. Three 66 KB blocks fit an SM, so r = 2051 (257 blocks) runs
+// in one wave over the 132 SMs; r = 1 is one warp on one SM.
 
+#include <atomic>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -62,7 +65,7 @@ constexpr double PIVOT_FLOOR = 1e-12;
 constexpr double L_CAP = 1e3;
 constexpr int FACTOR_TX = 32;        // K6 thread grid
 constexpr int FACTOR_TY = 16;
-constexpr int SOLVE_COLS = 64;       // K7 right-hand sides a block
+constexpr int SOLVE_WARPS = 8;       // K7 right-hand sides (warps) a block
 constexpr int PACKED = NB * (NB + 1) / 2;
 
 __device__ __forceinline__ double clip(double x, double cap) {
@@ -74,14 +77,36 @@ __device__ __forceinline__ double clamp_pivot(double p) {
     return p < PIVOT_FLOOR ? fmax(fabs(p), PIVOT_FLOOR) : p;
 }
 
-// offset of row i of a packed lower triangle
+// offset of row i, and of column t, of a packed lower triangle
 __device__ __forceinline__ int prow(int i) { return i * (i + 1) / 2; }
+__device__ __forceinline__ int pcol(int t) {
+    return t * (2 * NB + 1 - t) / 2;
+}
 
-template <typename K>
-cudaError_t allow_smem(K* kernel, size_t bytes) {
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(bytes));
+// Raise kernel K's dynamic shared memory limit to `bytes` on the current
+// device, once per device: the attribute stays set there, and setting it
+// at every launch costs host time that K7 at one right-hand side cannot
+// spare. Two host threads may both set it; that is harmless.
+constexpr int MAX_DEVICES = 64;
+
+template <auto K>
+cudaError_t allow_smem(size_t bytes) {
+    static std::atomic<size_t> allowed[MAX_DEVICES];
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    const bool cached = dev >= 0 && dev < MAX_DEVICES;
+    if (cached && bytes <= allowed[dev].load(std::memory_order_acquire))
+        return cudaSuccess;
+    e = cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+    if (e == cudaSuccess && cached) {
+        size_t cur = allowed[dev].load(std::memory_order_relaxed);
+        while (cur < bytes && !allowed[dev].compare_exchange_weak(
+                                  cur, bytes, std::memory_order_release))
+            ;
+    }
+    return e;
 }
 
 // K6: one (NB, NB) block, lower triangle of S in, L out. Column j of L
@@ -132,49 +157,97 @@ dense_factor_block_kernel(const double* __restrict__ S, int lds,
     if (tid == 0 && clamped) flag[0] = 1;
 }
 
+// Stage the lower triangle of the (NB, NB) block L (row stride ldl)
+// into Lp, packed by rows (ROWS: row i at prow(i)) or by columns (column
+// t at pcol(t)), with all of the block's threads. A thread reads two
+// neighbouring entries of a row with one 16-byte load where L and ldl
+// allow it.
+template <bool ROWS>
+__device__ __forceinline__ void stage_lower(const double* __restrict__ L,
+                                            int ldl, double* Lp) {
+    const int tid = threadIdx.x, nt = blockDim.x;
+    auto put = [&](int i, int t, double v) {
+        Lp[ROWS ? prow(i) + t : pcol(t) + i - t] = v;
+    };
+    if (((reinterpret_cast<size_t>(L) | ((size_t)ldl * sizeof(double)))
+         & 15) == 0) {
+#pragma unroll 8
+        for (int e = tid; e < NB * NB / 2; e += nt) {
+            const int i = e / (NB / 2), t = 2 * (e % (NB / 2));
+            if (t <= i) {
+                const double2 v = *reinterpret_cast<const double2*>(
+                    L + (size_t)i * ldl + t);
+                put(i, t, v.x);
+                if (t < i) put(i, t + 1, v.y);
+            }
+        }
+    } else {
+#pragma unroll 8
+        for (int e = tid; e < NB * NB; e += nt) {
+            const int i = e / NB, t = e % NB;
+            if (t <= i) put(i, t, L[(size_t)i * ldl + t]);
+        }
+    }
+}
+
 // K7: X = L^{-1} B (TRANS false) or L^{-T} B (TRANS true) for one
-// (NB, NB) lower block L and (NB, r) right-hand sides.
+// (NB, NB) lower block L and (NB, r) right-hand sides, one warp a
+// right-hand side. Lane l holds the running sums of rows l, l + 32,
+// l + 64 and l + 96 in registers. Step j (ascending, or descending for
+// TRANS) forms x_j = acc_j / L_jj on lane j % 32, broadcasts it with a
+// shuffle, and every lane subtracts L[i, j] x_j (TRANS: L[j, i] x_j)
+// from its rows i still to come: a row takes its products in the order
+// of the steps, as the plain version subtracts them. The 128 steps are
+// unrolled, so every slot and owner lane is a constant; the diagonal
+// slot updates through a select, and no step branches. Row j's sum is
+// final once step j has passed, so lane l stores x of its rows at the
+// end of each 32-step tile. The staged triangle is packed along the
+// steps' reads: by columns for the forward solve (step j reads column
+// j), by rows for TRANS (step j reads row j), so the lanes of a step
+// read consecutive words.
 template <bool TRANS>
-__global__ void __launch_bounds__(SOLVE_COLS)
+__global__ void __launch_bounds__(32 * SOLVE_WARPS)
 dense_solve_kernel(const double* __restrict__ L, int ldl,
                    const double* __restrict__ B, int ldb,
                    double* __restrict__ X, int ldx, int r) {
     extern __shared__ double smem[];
     double* Lp = smem;                   // packed lower triangle
     double* rinv = Lp + PACKED;          // 1 / L[i, i]
-    double* xs = rinv + NB;              // (NB, SOLVE_COLS) solution tile
+    constexpr unsigned FULL = 0xffffffffu;
     const int tid = threadIdx.x;
-    // one flat loop over the block (independent loads the compiler can
-    // keep in flight), keeping the lower triangle
-    for (int e = tid; e < NB * NB; e += SOLVE_COLS) {
-        const int i = e / NB, t = e % NB;
-        if (t <= i) Lp[prow(i) + t] = L[(size_t)i * ldl + t];
-    }
+    stage_lower<TRANS>(L, ldl, Lp);
     __syncthreads();
-    for (int i = tid; i < NB; i += SOLVE_COLS)
-        rinv[i] = 1.0 / Lp[prow(i) + i];
+    for (int i = tid; i < NB; i += blockDim.x)
+        rinv[i] = 1.0 / Lp[TRANS ? prow(i) + i : pcol(i)];
     __syncthreads();
-    const int c = blockIdx.x * SOLVE_COLS + tid;
+    const int lane = tid & 31;
+    const int c = blockIdx.x * SOLVE_WARPS + (tid >> 5);
     if (c >= r) return;
-    if (!TRANS) {
-        for (int i = 0; i < NB; ++i) {
-            double acc = B[(size_t)i * ldb + c];
-            const double* Li = Lp + prow(i);
-            for (int t = 0; t < i; ++t)
-                acc = acc - Li[t] * xs[t * SOLVE_COLS + tid];
-            const double x = acc * rinv[i];
-            xs[i * SOLVE_COLS + tid] = x;
-            X[(size_t)i * ldx + c] = x;
+    double acc[NB / 32];
+#pragma unroll
+    for (int s = 0; s < NB / 32; ++s)
+        acc[s] = B[(size_t)(lane + 32 * s) * ldb + c];
+#pragma unroll
+    for (int k = 0; k < NB / 32; ++k) {
+        const int T = TRANS ? NB / 32 - 1 - k : k;   // tile of the steps
+#pragma unroll
+        for (int v = 0; v < 32; ++v) {
+            const int u = TRANS ? 31 - v : v;          // owner lane
+            const int j = 32 * T + u;
+            const double x = __shfl_sync(FULL, acc[T] * rinv[j], u);
+            // Lj[i] = L[i, j] (forward, i >= j) or L[j, i] (TRANS, i <= j)
+            const double* Lj = TRANS ? Lp + prow(j) : Lp + pcol(j) - j;
+#pragma unroll
+            for (int s = 0; s < NB / 32; ++s) {
+                if (TRANS ? s > T : s < T) continue;   // rows already done
+                const double a = acc[s] - Lj[lane + 32 * s] * x;
+                if (s != T)
+                    acc[s] = a;
+                else
+                    acc[s] = (TRANS ? lane < u : lane > u) ? a : acc[s];
+            }
         }
-    } else {
-        for (int i = NB - 1; i >= 0; --i) {
-            double acc = B[(size_t)i * ldb + c];
-            for (int t = NB - 1; t > i; --t)
-                acc = acc - Lp[prow(t) + i] * xs[t * SOLVE_COLS + tid];
-            const double x = acc * rinv[i];
-            xs[i * SOLVE_COLS + tid] = x;
-            X[(size_t)i * ldx + c] = x;
-        }
+        X[(size_t)(32 * T + lane) * ldx + c] = acc[T] * rinv[32 * T + lane];
     }
 }
 
@@ -188,7 +261,7 @@ extern "C" {
 int bgt_dense_factor_block(const double* S, int lds, double* L, int ldl,
                            int* flag, void* stream) {
     const size_t smem = (size_t)(NB * NB + 2 * NB) * sizeof(double);
-    cudaError_t e = allow_smem(dense_factor_block_kernel, smem);
+    cudaError_t e = allow_smem<dense_factor_block_kernel>(smem);
     if (e != cudaSuccess) return (int)e;
     dense_factor_block_kernel<<<1, dim3(FACTOR_TX, FACTOR_TY), smem,
                                 (cudaStream_t)stream>>>(S, lds, L, ldl, flag);
@@ -198,20 +271,19 @@ int bgt_dense_factor_block(const double* S, int lds, double* L, int ldl,
 int bgt_dense_solve_lower(const double* L, int ldl, const double* B,
                           int ldb, double* X, int ldx, int r, int trans,
                           void* stream) {
-    const size_t smem =
-        (size_t)(PACKED + NB + NB * SOLVE_COLS) * sizeof(double);
-    const dim3 grid((r + SOLVE_COLS - 1) / SOLVE_COLS);
+    const size_t smem = (size_t)(PACKED + NB) * sizeof(double);
+    const dim3 grid((r + SOLVE_WARPS - 1) / SOLVE_WARPS);
     cudaStream_t st = (cudaStream_t)stream;
     cudaError_t e;
     if (trans) {
-        e = allow_smem(dense_solve_kernel<true>, smem);
+        e = allow_smem<dense_solve_kernel<true>>(smem);
         if (e != cudaSuccess) return (int)e;
-        dense_solve_kernel<true><<<grid, SOLVE_COLS, smem, st>>>(
+        dense_solve_kernel<true><<<grid, 32 * SOLVE_WARPS, smem, st>>>(
             L, ldl, B, ldb, X, ldx, r);
     } else {
-        e = allow_smem(dense_solve_kernel<false>, smem);
+        e = allow_smem<dense_solve_kernel<false>>(smem);
         if (e != cudaSuccess) return (int)e;
-        dense_solve_kernel<false><<<grid, SOLVE_COLS, smem, st>>>(
+        dense_solve_kernel<false><<<grid, 32 * SOLVE_WARPS, smem, st>>>(
             L, ldl, B, ldb, X, ldx, r);
     }
     return (int)cudaGetLastError();

@@ -215,33 +215,28 @@ class BandedBackend(FastIWPBackend):
             g = g + F.pad(gr, (tb.offset, self.q - tb.offset - tb.size))
         return g
 
-    def _diag_quad(self, dvec, Z0PZ0_d, Vd, tail):
-        """(V - Z0 t)^T diag(dvec) (V - Z0 t) in primed coordinates."""
-        mv = dvec * Vd
-        qr = (mv * Vd).sum()
-        if self.q:
-            qr = qr - 2.0 * torch.dot(tail, self.Z0.T @ mv)
-            qr = qr + tail @ (Z0PZ0_d @ tail)
-        return qr
+    def _band_diag_terms(self, theta):
+        """(precision scale or None, diagonal) of each diagonal prior term
+        in the band: the merged levels, then the padded slots."""
+        terms = [(torch.exp(theta[bt.theta_idx]), bt.mask)
+                 for bt in self.band_terms]
+        if self.prior_diag_band is not None:
+            terms.append((None, self.prior_diag_band))
+        return terms
 
     def _prior_neg(self, Vp, tail, theta):
-        """Non-likelihood part of the joint negative log posterior."""
-        Vd = Vp[:self.d]
+        """Non-likelihood part of the joint negative log posterior. The
+        driver's quadratic is a sum of squares (FastIWPBackend), and so
+        is each diagonal term's, sum dvec (V' - Z0 t)^2."""
+        V = self.to_V(Vp, tail)
         th_d = theta[self.drv_theta]
-        quad = self.prior_quad_V(Vp)
-        if self.q:
-            quad = quad - 2.0 * torch.dot(tail, self.PZ0.T @ Vd)
-            quad = quad + tail @ (self.Z0PZ0 @ tail)
-        lp = -0.5 * torch.exp(th_d) * quad
+        lp = -0.5 * torch.exp(th_d) * self.prior_quad(V)
         lp = lp + 0.5 * (self.d_drv * th_d + self.logPdet_drv)
+        for lr, dvec in self._band_diag_terms(theta):
+            qr = (dvec * V * V).sum()
+            lp = lp - 0.5 * (qr if lr is None else lr * qr)
         for bt in self.band_terms:
-            th = theta[bt.theta_idx]
-            lp = lp - 0.5 * torch.exp(th) * self._diag_quad(
-                bt.mask, bt.Z0PZ0, Vd, tail)
-            lp = lp + 0.5 * (bt.d_size * th + bt.logPdet)
-        if self.prior_diag_band is not None:
-            lp = lp - 0.5 * self._diag_quad(self.prior_diag_band,
-                                            self.Z0PZ0_pad, Vd, tail)
+            lp = lp + 0.5 * (bt.d_size * theta[bt.theta_idx] + bt.logPdet)
         if self.q:
             lp = lp - 0.5 * self._tail_prior_quad(tail, theta)
             for tb in self.tail_terms:
@@ -254,30 +249,18 @@ class BandedBackend(FastIWPBackend):
 
     def grad_parts(self, Vp, tail, theta, r):
         """Gradient of neg_log_post in primed coordinates given the
-        likelihood residual r = d(-ll)/d eta."""
-        lam = torch.exp(theta[self.drv_theta])
-        Vd = Vp[:self.d]
-        pv = self._applyP(Vd)
+        likelihood residual r = d(-ll)/d eta: the prior's part on V is
+        g = e^th P V + sum dvec V (V = V' - Z0 t), and -Z0^T g on t."""
+        V = self.to_V(Vp, tail)
+        g = torch.exp(theta[self.drv_theta]) * self.prior_grad(V)
+        for lr, dvec in self._band_diag_terms(theta):
+            g = g + (dvec * V if lr is None else lr * (dvec * V))
         if self.q:
-            pv = pv - self.PZ0 @ tail
-        gVd = lam * pv
-        if self.q:
-            gt = (self.XFpT @ r + lam * (self.Z0PZ0 @ tail - self.PZ0.T @ Vd)
+            gt = (self.XFpT @ r - self.Z0.T @ g
                   + self._tail_prior_grad(tail, theta))
         else:
             gt = tail.new_zeros(0)
-        diag_terms = [(torch.exp(theta[bt.theta_idx]), bt.mask, bt.Z0PZ0)
-                      for bt in self.band_terms]
-        if self.prior_diag_band is not None:
-            diag_terms.append((None, self.prior_diag_band, self.Z0PZ0_pad))
-        for lr, dvec, Z0PZ0_d in diag_terms:
-            pr = dvec * Vd
-            if self.q:
-                pr = pr - dvec * (self.Z0 @ tail)
-                gr = Z0PZ0_d @ tail - self.Z0.T @ (dvec * Vd)
-                gt = gt + (gr if lr is None else lr * gr)
-            gVd = gVd + (pr if lr is None else lr * pr)
-        return self.Bt(r) + self._pad_d(gVd), gt
+        return self.Bt(r) + self._pad_d(g), gt
 
     # -- posterior draws --------------------------------------------------
     def sample(self, states, idx, zb, zd):
@@ -457,6 +440,11 @@ def build_banded_backend(instances, md, design_mat_fixed, bf_prec, bf_mean,
         except ValueError as e:
             _densify_or_raise(str(e))
 
+    # w of the driver prior P = T^T diag(w) T: diff(knots), at stride G in
+    # a merged band (0 on the level and padded columns)
+    prior_w = np.zeros(d)
+    prior_w[np.arange(d_drv) * G] = np.diff(knots)
+
     bw = Wl - 1
     s = _choose_block(d, bw)
     s = -(-s // G) * G           # a multiple of G, as the JAX package's
@@ -527,22 +515,16 @@ def build_banded_backend(instances, md, design_mat_fixed, bf_prec, bf_mean,
         for a in range(Wl):
             XFp -= vals[:, a, None] * Z0[np.clip(start + a, 0, d - 1), :]
         # P = T' diag(w) T: P Z0 and Z0' P Z0 through G0 = T Z0
-        wk = np.diff(knots)
-        if merged_iid_idx is not None:
-            # driver weights at stride G; level and padded columns none
-            wk_m = np.zeros(d)
-            wk_m[np.arange(d_drv) * G] = wk
-            wk = wk_m
         nTo = Tdiags.shape[0]
         G0 = Tdiags[0][:, None] * Z0
         for o in range(1, nTo):
             G0[o:] += Tdiags[o, o:, None] * Z0[:-o]
-        wG0 = wk[:, None] * G0
+        wG0 = prior_w[:, None] * G0
         PZ0 = Tdiags[0][:, None] * wG0
         for o in range(1, nTo):
             PZ0[:-o] += Tdiags[o, o:, None] * wG0[o:]
-        Z0PZ0 = ((np.sqrt(wk)[:, None] * G0).T
-                 @ (np.sqrt(wk)[:, None] * G0))
+        Z0PZ0 = ((np.sqrt(prior_w)[:, None] * G0).T
+                 @ (np.sqrt(prior_w)[:, None] * G0))
     else:
         Z0, PZ0, Z0PZ0 = np.zeros((d, 0)), np.zeros((d, 0)), np.zeros((0, 0))
         XFp = xf_dense
@@ -588,8 +570,9 @@ def build_banded_backend(instances, md, design_mat_fixed, bf_prec, bf_mean,
     arrays = dict(
         valsT=np.ascontiguousarray(vals.T), start=start,
         XFpT=np.ascontiguousarray(XFp.T), Z0=Z0, PZ0=PZ0, Z0PZ0=Z0PZ0,
-        P_band=P_band, Tdiags=Tdiags, prior_diag_tail=prior_diag_tail,
-        prior_mean_tail=prior_mean_tail, ref_perm=ref_perm)
+        P_band=P_band, Tdiags=Tdiags, prior_w=prior_w,
+        prior_diag_tail=prior_diag_tail, prior_mean_tail=prior_mean_tail,
+        ref_perm=ref_perm)
     band_terms = []
     w_real = None
     if merged_iid_idx is not None:
@@ -616,7 +599,7 @@ def from_arrays(term, md, arrays, scalars, tail_terms, band_terms,
                 row_order=None, device="cuda"):
     """BandedBackend on `device` from host arrays: rows already sorted by
     window start (md's y and size in that order). arrays: valsT, start,
-    XFpT, Z0, PZ0, Z0PZ0, P_band, Tdiags, prior_diag_tail,
+    XFpT, Z0, PZ0, Z0PZ0, P_band, Tdiags, prior_w, prior_diag_tail,
     prior_mean_tail, ref_perm and, with padded merged slots,
     prior_diag_band and Z0PZ0_pad; scalars: drv_theta, Wl, G, d, dpad,
     d_drv, logPdet_drv, logdetT, w_real; tail_terms / band_terms: dicts
@@ -647,7 +630,7 @@ def from_arrays(term, md, arrays, scalars, tail_terms, band_terms,
         XFpT=f64(arrays["XFpT"]), Z0=f64(arrays["Z0"]),
         PZ0=f64(arrays["PZ0"]), Z0PZ0=f64(arrays["Z0PZ0"]),
         P_band=f64(arrays["P_band"]), Tdiags=f64(arrays["Tdiags"]),
-        logdetT=float(scalars["logdetT"]),
+        prior_w=f64(arrays["prior_w"]), logdetT=float(scalars["logdetT"]),
         prior_diag_tail=f64(arrays["prior_diag_tail"]),
         prior_mean_tail=f64(arrays["prior_mean_tail"]),
         engine=BandArrowEngine(dpad, Wl - 1, q),

@@ -160,33 +160,12 @@ class BatchedFastIWP:
         return C - torch.exp(theta)[:, None, None] * corr
 
     # -- prior --------------------------------------------------------------
-    def prior_quad_V(self, V):
-        base, d = self.base, self.d
-        total = (base.P_band[0] * V[:, :d] ** 2).sum(1)
-        for o in range(1, self.p + 1):
-            total = total + 2.0 * (base.P_band[o, :d - o] * V[:, o:d]
-                                   * V[:, :d - o]).sum(1)
-        return total
-
-    def _applyP(self, Vd):
-        base = self.base
-        pv = base.P_band[0] * Vd
-        for o in range(1, self.p + 1):
-            b = base.P_band[o, :self.d - o]
-            pv = (pv + F.pad(b * Vd[:, :-o], (o, 0))
-                  + F.pad(b * Vd[:, o:], (0, o)))
-        return pv
-
     def _prior_neg(self, Vp, tail, theta):
         """(R,) non-likelihood parts of the joint negative log
-        posteriors."""
+        posteriors; the prior quadratics are sums of squares
+        (FastIWPBackend.prior_quad)."""
         base = self.base
-        Vd = Vp[:, :self.d]
-        quad = self.prior_quad_V(Vp)
-        if self.q:
-            quad = quad - 2.0 * (tail * (Vd @ base.PZ0)).sum(1)
-            quad = quad + (tail * (tail @ base.Z0PZ0.T)).sum(1)
-        lp = -0.5 * torch.exp(theta) * quad
+        lp = -0.5 * torch.exp(theta) * base.prior_quad(base.to_V(Vp, tail))
         lp = lp + 0.5 * (self.d * theta + base._logPdet0)
         if self.q:
             lp = lp - 0.5 * (base.prior_diag_tail
@@ -200,15 +179,11 @@ class BatchedFastIWP:
         base = self.base
         e = self.eta(Vp, tail) if eta is None else eta
         r = self._dneg(e)
-        lam = torch.exp(theta)[:, None]
-        Vd = Vp[:, :self.d]
-        pv = self._applyP(Vd)
+        pv = (torch.exp(theta)[:, None]
+              * base.prior_grad(base.to_V(Vp, tail)))
+        gV = self.Bt(r) + F.pad(pv, (0, self.dpad - self.d))
         if self.q:
-            pv = pv - tail @ base.PZ0.T
-        gV = self.Bt(r) + F.pad(lam * pv, (0, self.dpad - self.d))
-        if self.q:
-            gt = (r @ base.XFpT.T
-                  + lam * (tail @ base.Z0PZ0.T - Vd @ base.PZ0)
+            gt = (r @ base.XFpT.T - pv @ base.Z0
                   + base.prior_diag_tail * (tail - base.prior_mean_tail))
         else:
             gt = tail.new_zeros((self.R, 0))

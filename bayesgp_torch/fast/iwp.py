@@ -116,6 +116,7 @@ class FastIWPBackend(HostNodes):
     Z0PZ0: torch.Tensor     # (q, q) Z0' P_V Z0
     P_band: torch.Tensor    # (p+1, d) prior band, [o, j] = P_V[j+o, j]
     Tdiags: torch.Tensor    # (p+1, d) band of U = T V
+    prior_w: torch.Tensor   # (d,) w of P_V = T^T diag(w) T: diff(knots)
     logdetT: float
     prior_diag_tail: torch.Tensor  # (q,)
     prior_mean_tail: torch.Tensor  # (q,)
@@ -137,9 +138,9 @@ class FastIWPBackend(HostNodes):
         self._seg_prev = (torch.clamp(self.seg_hi - 1, min=0),
                           torch.clamp(self.seg_lo - 1, min=0))
         self._seg_some = (self.seg_hi > 0, self.seg_lo > 0)
-        # the prior band's nonzero off-diagonals (all p of one IWP term)
-        self._p_offsets = [o for o in range(1, self.p + 1)
-                           if bool(self.P_band[o].any())]
+        # T's nonzero off-diagonals (all p of one IWP term)
+        self._t_offsets = [o for o in range(1, self.Tdiags.shape[0])
+                           if bool(self.Tdiags[o].any())]
         self._logPdet0 = float(np.asarray(self.md.logPdet)[0])
         self._phi = (-torch.log(torch.as_tensor(self.md.alpha, dtype=DTYPE))
                      / torch.as_tensor(self.md.u, dtype=DTYPE)).to(dev)
@@ -234,44 +235,45 @@ class FastIWPBackend(HostNodes):
                 + torch.diag(self.prior_diag_tail))
 
     # -- prior ------------------------------------------------------------
-    def prior_quad_V(self, V):
-        """V^T P_V V over the band."""
-        d = self.d
-        total = (self.P_band[0] * V[:d] ** 2).sum()
-        for o in self._p_offsets:
-            total = total + 2.0 * (self.P_band[o, :d - o] * V[o:d]
-                                   * V[:d - o]).sum()
-        return total
-
-    def _applyP(self, Vd):
-        """P_V @ Vd over the band."""
-        pv = self.P_band[0] * Vd
-        for o in self._p_offsets:
-            b = self.P_band[o, :self.d - o]
-            pv = pv + F.pad(b * Vd[:-o], (o, 0)) + F.pad(b * Vd[o:], (0, o))
-        return pv
-
+    # The driver's prior quadratic r^T P_V r, r = V' - Z0 t, is taken as
+    # the sum of squares sum_i w_i ((T r)_i)^2 (P_V = T^T diag(w) T, how
+    # basis/reparam.prior_band builds it), never from the expanded
+    # V'^T P V' - 2 t^T PZ0^T V' + t^T Z0PZ0 t: on V' = Z0 t the expanded
+    # form is rounding of either sign, which e^theta multiplies, and the
+    # inner objective is then unbounded below at large theta. PZ0 and
+    # Z0PZ0 still enter the Hessian blocks.
     def apply_T(self, V):
         """U = T V over the band of T. V: (..., d)."""
         U = self.Tdiags[0] * V
-        for o in range(1, self.Tdiags.shape[0]):
+        for o in self._t_offsets:
             U = U + F.pad(self.Tdiags[o, o:] * V[..., :-o], (o, 0))
         return U
 
+    def apply_Tt(self, U):
+        """T^T U over the band of T. U: (..., d)."""
+        V = self.Tdiags[0] * U
+        for o in self._t_offsets:
+            V = V + F.pad(self.Tdiags[o, o:] * U[..., o:], (0, o))
+        return V
+
     def to_V(self, Vp, tail):
-        """Spline coefficients V = V' - Z0 t (rows of Vp/tail for 2-D)."""
-        if not self.q:
-            return Vp
-        return Vp[..., :self.d] - tail @ self.Z0.T
+        """Spline coefficients V = V' - Z0 t, (..., d) (rows of Vp/tail for
+        2-D)."""
+        Vd = Vp[..., :self.d]
+        return Vd - tail @ self.Z0.T if self.q else Vd
+
+    def prior_quad(self, V):
+        """V^T P_V V as sum_i w_i ((T V)_i)^2 over the last axis."""
+        U = self.apply_T(V)
+        return (self.prior_w * U * U).sum(-1)
+
+    def prior_grad(self, V):
+        """P_V V as T^T (w * T V) over the last axis."""
+        return self.apply_Tt(self.prior_w * self.apply_T(V))
 
     def _prior_neg(self, Vp, tail, theta):
         """Non-likelihood part of the joint negative log posterior."""
-        Vd = Vp[:self.d]
-        quad = self.prior_quad_V(Vp)
-        if self.q:
-            quad = quad - 2.0 * torch.dot(tail, self.PZ0.T @ Vd)
-            quad = quad + tail @ (self.Z0PZ0 @ tail)
-        lp = -0.5 * torch.exp(theta[0]) * quad
+        lp = -0.5 * torch.exp(theta[0]) * self.prior_quad(self.to_V(Vp, tail))
         lp = lp + 0.5 * (self.d * theta[0] + self._logPdet0)
         if self.q:
             lp = lp - 0.5 * (self.prior_diag_tail
@@ -296,14 +298,10 @@ class FastIWPBackend(HostNodes):
     def grad_parts(self, Vp, tail, theta, r):
         """grad_W given the likelihood residual r = d(-ll)/d eta, which a
         model with more latent terms computes on its own eta."""
-        lam = torch.exp(theta[0])
-        Vd = Vp[:self.d]
-        pv = self._applyP(Vd)
+        pv = torch.exp(theta[0]) * self.prior_grad(self.to_V(Vp, tail))
+        gV = self.Bt(r) + F.pad(pv, (0, self.dpad - self.d))
         if self.q:
-            pv = pv - self.PZ0 @ tail
-        gV = self.Bt(r) + F.pad(lam * pv, (0, self.dpad - self.d))
-        if self.q:
-            gt = (self.XFpT @ r + lam * (self.Z0PZ0 @ tail - self.PZ0.T @ Vd)
+            gt = (self.XFpT @ r - self.Z0.T @ pv
                   + self.prior_diag_tail * (tail - self.prior_mean_tail))
         else:
             gt = tail.new_zeros(0)
@@ -645,6 +643,7 @@ def build_fast_iwp(term, md, xf_dense, prior_diag_tail, prior_mean_tail,
     Tdiags = np.zeros((p + 1, d))
     for o in range(p + 1):
         Tdiags[o, o:] = np.diagonal(T, -o)
+    prior_w = np.diff(knots)
 
     # tail orthogonalization: Z0 = argmin ||B Z - XF||^2 + tau Z' P_V Z
     # (any Z0 keeps the Laplace value exact; this one keeps the Schur
@@ -674,15 +673,15 @@ def build_fast_iwp(term, md, xf_dense, prior_diag_tail, prior_mean_tail,
             XFp -= vals[:, a, None] * Z0[np.clip(start + a, 0, d - 1), :]
         # P = T' diag(w) T: P Z0 and Z0' P Z0 through G0 = T Z0, which
         # keeps Z0' P Z0 positive semi-definite by construction
-        wk = np.diff(knots)
         G0 = Tdiags[0][:, None] * Z0
         for o in range(1, p + 1):
             G0[o:] += Tdiags[o, o:, None] * Z0[:-o]
-        wG0 = wk[:, None] * G0
+        wG0 = prior_w[:, None] * G0
         PZ0 = Tdiags[0][:, None] * wG0
         for o in range(1, p + 1):
             PZ0[:-o] += Tdiags[o, o:, None] * wG0[o:]
-        Z0PZ0 = (np.sqrt(wk)[:, None] * G0).T @ (np.sqrt(wk)[:, None] * G0)
+        sw = np.sqrt(prior_w)[:, None]
+        Z0PZ0 = (sw * G0).T @ (sw * G0)
     else:
         Z0 = np.zeros((d, 0))
         PZ0 = np.zeros((d, 0))
@@ -693,6 +692,7 @@ def build_fast_iwp(term, md, xf_dense, prior_diag_tail, prior_mean_tail,
         valsT=np.ascontiguousarray(vals.T), start=start,
         seg_lo=seg_lo, seg_hi=seg_hi, XFpT=np.ascontiguousarray(XFp.T),
         Z0=Z0, PZ0=PZ0, Z0PZ0=Z0PZ0, P_band=P_band, Tdiags=Tdiags,
+        prior_w=prior_w,
         prior_diag_tail=np.asarray(prior_diag_tail, np.float64),
         prior_mean_tail=np.asarray(prior_mean_tail, np.float64))
     return from_arrays(term, md_perm, p, d, dpad, arrays, float(logdetT),
@@ -720,7 +720,7 @@ def from_arrays(term, md, p, d, dpad, arrays, logdetT, row_order, device):
         XFpT=f64(arrays["XFpT"]), Z0=f64(arrays["Z0"]),
         PZ0=f64(arrays["PZ0"]), Z0PZ0=f64(arrays["Z0PZ0"]),
         P_band=f64(arrays["P_band"]), Tdiags=f64(arrays["Tdiags"]),
-        logdetT=float(logdetT),
+        prior_w=f64(arrays["prior_w"]), logdetT=float(logdetT),
         prior_diag_tail=f64(arrays["prior_diag_tail"]),
         prior_mean_tail=f64(arrays["prior_mean_tail"]),
         engine=BandArrowEngine(dpad, p, q),

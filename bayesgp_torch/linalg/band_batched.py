@@ -25,13 +25,14 @@ tensors as band_kernels.py does: the plain PyTorch version on the CPU
 (a loop over columns, vectorized over systems, band entries and
 right-hand sides), the CUDA kernel in csrc/band_kernels.cu on a card,
 counted in `launches`, and no fallback from one to the other. Every
-plain version computes system r with the arithmetic and order of the
-one-system plain version in band_kernels.py, and every kernel runs the
-device code of the one-system kernel at system r's offset: system r of a
-batched result equals the one-system result bit for bit. (Above
-bk.SMALL_BW the one-system solves K2/K3 sum farthest-first on their own
-warp kernels; K9/K10 keep the nearest-first generic code there, so at
-those widths their systems agree with K2/K3 to rounding only. The
+plain version computes system r with the arithmetic and order of a
+one-system plain version in band_kernels.py, and every kernel runs that
+one-system kernel's device code at system r's offset: system r of a
+batched result equals the one-system result bit for bit. K8, K9 (up to
+bk.SMALL_BW) and K11 follow K1, K2 and K4; K10 follows K5
+(band_bwd_multi, nearest-first). K3 sums farthest-first at every width
+and K2 past bk.SMALL_BW, each on its own kernels, so K10's systems, and
+K9's past that width, agree with K3 and K2 to rounding only. (The
 replicate fits run bw = 3.) K8 keeps K1's guards (pivot floor 1e-12,
 |L| <= 1e3) and reports per system whether it clamped a pivot.
 """
@@ -40,7 +41,8 @@ from __future__ import annotations
 import torch
 
 from . import band_kernels as bk
-from .band_kernels import L_CAP, PIVOT_FLOOR, _check, _on_cuda, _ptr, _stream
+from .band_kernels import (L_CAP, PIVOT_FLOOR, _check, _device, _on_cuda,
+                           _ptr, _stream)
 
 # the grid's system axis of K9/K10 (blockIdx.y)
 MAX_SYSTEMS = 65535
@@ -130,7 +132,7 @@ def band_factor_batched(bands):
     hld = bands.new_empty(NR)
     flag = torch.zeros(NR, dtype=torch.int32, device=bands.device)
     if NR:
-        with torch.cuda.device(bands.device):
+        with _device(bands):
             _launch("band_factor_batched", _ptr(bands), _ptr(L), _ptr(rinv),
                     _ptr(piv), _ptr(hld), _ptr(flag), NR, d, W - 1,
                     _stream(bands))
@@ -169,7 +171,7 @@ def _solve(name, plain, L, rinv, B):
     X = torch.empty_like(B)
     NR, d, W = L.shape
     if X.numel():
-        with torch.cuda.device(L.device):
+        with _device(L):
             _launch(name, _ptr(L), _ptr(rinv), _ptr(B), _ptr(X), NR, d,
                     W - 1, B.shape[2], _stream(L))
     return X
@@ -225,7 +227,7 @@ def band_takahashi_batched(L, rinv):
     Z = torch.empty_like(L)
     NR, d, W = L.shape
     if NR:
-        with torch.cuda.device(L.device):
+        with _device(L):
             _launch("band_takahashi_batched", _ptr(L), _ptr(rinv), _ptr(Z),
                     NR, d, W - 1, _stream(L))
     return Z

@@ -34,12 +34,14 @@ and |Y| at 1e8. On a healthy equilibrated system none of them binds;
 the factor reports whether it clamped a pivot, which the half-log-det
 backward reads (band_arrow.py).
 
-The solves K2 and K3 sum a row's products nearest-first up to SMALL_BW
-and farthest-first above it (the comment at K2 below); each plain
+K3 sums a row's products farthest-first at every width; K2 sums them
+nearest-first up to SMALL_BW and farthest-first above it, and K5
+nearest-first at every width (the comment at K2 below). Each plain
 version takes the order of the kernel that serves the width.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -182,7 +184,20 @@ def _ptr(t):
 
 
 def _stream(t):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    """The raw handle of the current stream of t's device."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.device.index))
+
+
+_NO_SWITCH = contextlib.nullcontext()
+
+
+def _device(t):
+    """Context in which a launch goes to t's device: nothing to do where
+    it is the current device (a device switch costs microseconds of host
+    time, as much as some kernels take)."""
+    if t.device.index == torch._C._cuda_getDevice():
+        return _NO_SWITCH
+    return torch.cuda.device(t.device)
 
 
 def _launch(name, fn, *args, counts=launches):
@@ -312,7 +327,7 @@ def band_factor(band, C):
     piv = band.new_empty(d)          # scratch: the clamped pivots
     hld = band.new_empty(())
     flag = torch.empty((), dtype=torch.int32, device=band.device)
-    with torch.cuda.device(band.device):
+    with _device(band):
         _launch("band_factor", lib.bgt_band_factor,
                 _ptr(band), _ptr(C0), _ptr(L), _ptr(rinv), _ptr(Y0),
                 _ptr(piv), _ptr(hld), _ptr(flag), d, W - 1, tile,
@@ -329,13 +344,14 @@ def band_factor(band, C):
 
 # -- K2: forward solve ------------------------------------------------------
 #
-# The order of a row's sum depends on the width. For bw <= SMALL_BW the
-# register-window kernels take the products nearest-first (the x_{j-1}
-# term first); for wider bands the warp kernels take them farthest-first
-# (the x_{j-bw} term first), the order in which a right-looking
-# substitution produces them. Each plain version sums in the order of
-# the kernel that serves its width; K5 keeps nearest-first at every
-# width.
+# The order of a row's sum. K2's register-window kernels (bw <=
+# SMALL_BW) take the products nearest-first (the x_{j-1} term first);
+# its warp kernels (wider bands) take them farthest-first (the x_{j-bw}
+# term first), the order in which a right-looking substitution produces
+# them. K3 sums farthest-first at every width: its register-window
+# kernel keeps the nearest product, the one on the row-to-row chain,
+# last. K5 keeps nearest-first at every width. Each plain version sums
+# in the order of the kernel that serves its width.
 
 
 def band_fwd_solve_plain(L, rinv, B):
@@ -361,7 +377,7 @@ def band_fwd_solve(L, rinv, B):
     if not _on_cuda(L, rinv, B):
         return band_fwd_solve_plain(L, rinv, B)
     X = torch.empty_like(B)
-    with torch.cuda.device(L.device):
+    with _device(L):
         _launch("band_fwd_solve", _library().bgt_band_fwd_solve,
                 _ptr(L), _ptr(rinv), _ptr(B), _ptr(X), L.shape[0],
                 L.shape[1] - 1, B.shape[1], _stream(L))
@@ -383,9 +399,8 @@ def _bwd_plain(L, rinv, B, far_first):
 
 def band_bwd_solve_plain(L, rinv, B):
     """Plain version of band_bwd_solve: row j is B[j] less the products
-    L[j, t] x_{j+t}, nearest-first for bw <= SMALL_BW, farthest-first
-    above, times rinv[j]."""
-    return _bwd_plain(L, rinv, B, far_first=L.shape[1] - 1 > SMALL_BW)
+    L[j, t] x_{j+t}, farthest-first, times rinv[j]."""
+    return _bwd_plain(L, rinv, B, far_first=True)
 
 
 def band_bwd_multi_plain(L, rinv, Z):
@@ -400,7 +415,7 @@ def _bwd(name, fn_name, plain, L, rinv, B):
     if not _on_cuda(L, rinv, B):
         return plain(L, rinv, B)
     X = torch.empty_like(B)
-    with torch.cuda.device(L.device):
+    with _device(L):
         _launch(name, getattr(_library(), fn_name),
                 _ptr(L), _ptr(rinv), _ptr(B), _ptr(X), L.shape[0],
                 L.shape[1] - 1, B.shape[1], _stream(L))
@@ -454,7 +469,7 @@ def band_takahashi(L, rinv):
     if not _on_cuda(L, rinv):
         return band_takahashi_plain(L, rinv)
     Z = torch.empty_like(L)
-    with torch.cuda.device(L.device):
+    with _device(L):
         _launch("band_takahashi", _library().bgt_band_takahashi,
                 _ptr(L), _ptr(rinv), _ptr(Z), L.shape[0], L.shape[1] - 1,
                 _stream(L))

@@ -124,7 +124,7 @@ def dense_factor_block(S, flag=None):
     L = torch.empty((B, B), dtype=S.dtype, device=S.device)
     if flag is None:
         flag = torch.zeros((), dtype=torch.int32, device=S.device)
-    with torch.cuda.device(S.device):
+    with bk._device(S):
         bk._launch("dense_factor_block", _library().bgt_dense_factor_block,
                    bk._ptr(S), S.stride(0), bk._ptr(L), B, bk._ptr(flag),
                    bk._stream(S), counts=launches)
@@ -156,14 +156,16 @@ def dense_solve_lower(L, Bm, trans=False):
     _check(Bm, "B")
     if not bk._on_cuda(L, Bm):
         return dense_solve_lower_plain(L, Bm, trans)
+    # host time counts at r = 1, where the kernel takes ~13 us: pointers
+    # go to ctypes as ints, and new_empty parses fewer arguments
     r = Bm.shape[1]
-    X = torch.empty((B, r), dtype=Bm.dtype, device=Bm.device)
+    X = Bm.new_empty((B, r))
     if r == 0:
         return X
-    with torch.cuda.device(Bm.device):
+    with bk._device(Bm):
         bk._launch("dense_solve_lower", _library().bgt_dense_solve_lower,
-                   bk._ptr(L), L.stride(0), bk._ptr(Bm), Bm.stride(0),
-                   bk._ptr(X), r, r, int(trans), bk._stream(Bm),
+                   L.data_ptr(), L.stride(0), Bm.data_ptr(), Bm.stride(0),
+                   X.data_ptr(), r, r, int(trans), bk._stream(Bm),
                    counts=launches)
     return X
 

@@ -19,8 +19,9 @@ Phases (any failure raises and the script exits non-zero):
      small replicate fits (R = 5 in groups of 2) packed against
      sequential;
   4. the headline fit: model_fit at n = 1e5, IWP order 3, k = 2000,
-     Poisson, AGHQ k = 4, M = 3000, counting every kernel launch, and a
-     profiled Laplace evaluation of it;
+     Poisson, AGHQ k = 4, M = 3000, counting every kernel launch, its
+     outer FD Hessian from several warm starts, and a profiled Laplace
+     evaluation of it;
   5. the kernel engine against the plain engine at a fixed (theta, V,
      tail) point of that fit;
   6. replicate fits on the headline design: replicate_fits_packed at
@@ -34,9 +35,10 @@ Phases (any failure raises and the script exits non-zero):
   9. the scattered-IID headline fit: model_fit(..., engine='scatter_iid')
      at n = 1e5, IWP order 3, k = 2000, an x-clustered IID term with
      q = 1e4 levels, Poisson, AGHQ k = 3, M = 1000 (the JAX package's
-     bench_bigiid generator), twice, counting the launches of K6/K7 and
-     refusing any torch.linalg factorization or triangular solve on the
-     path;
+     bench_bigiid generator), twice, counting the launches of K6/K7 (K7
+     by right-hand sides: r = 1 or more) and refusing any torch.linalg
+     factorization or triangular solve on the path; its outer FD Hessian
+     from several warm starts;
  10. one fit of the scattered q = 1e4 generator (bench_scattered_iid) at
      n = 5e4, k = 500, M = 500;
  11. the dense kernel engine against the dense plain engine at a fixed
@@ -50,8 +52,11 @@ Phases (any failure raises and the script exits non-zero):
      bench_bigiid generator (n = 1e5, IWP3 k = 2000, q = 1e4 levels
      clustered in x, merged into the band: d = 13993, bw = 34, q = 3),
      twice, counting K1-K5 launches, beside phase 9's scatter_iid fit of
-     the same data; the two engines' theta gradients held to each other
-     at MERGED_GATE_THETA, and the sick-factor gate's state logged;
+     the same data: its mode held to phase 9's within MERGED_MODE_TOL, its
+     value at theta_IWP = 40 and at RUNAWAY_MODE above its value at the
+     mode, no sick-factor gate warning; the two engines' theta gradients
+     held to each other at MERGED_GATE_THETA; the driver's prior
+     quadratic logged expanded, as a sum of squares and in longdouble;
  15. the kernel engine against the plain engine at a fixed point of a
      reduced merged model (n = 5000, k = 100, q = 600);
  16. the tail-term cell: bench_scattered_iid's engine='banded' q = 512
@@ -60,9 +65,12 @@ Phases (any failure raises and the script exits non-zero):
      MERGED_GATE_THETA.
 Phase 1 builds csrc/band_kernels.cu (K1-K5, K8-K11) and
 csrc/dense_kernels.cu (K6, K7) with two nvcc processes started together;
-phase 2 also checks K6/K7 against their plain versions on healthy and
-indefinite blocks, at r = 1, 128, 1000 and 2051 right-hand sides, and the
-blocked factor and solves at the headline dimension 2051, and K1-K5 at
+phase 2 also checks K3 and K5 bit for bit at every register-window
+width (bw = 1..8), K6/K7 against their plain versions on healthy and
+indefinite blocks, K7 bit for bit at r = 1, 2, 32, 33, 128, 1000 and 2051
+right-hand sides both ways and timed against solve_triangular at r = 1
+and 2051, the blocked factor and solves at the headline dimension 2051,
+and K1-K5 at
 the shapes the JAX package sends to its chunked kernels K1c-K5c
 (CHUNKED_SHAPES), the corners of bw <= 125 and of the tail width
 included, against their plain versions (on the whole system, on the
@@ -116,7 +124,7 @@ HEADLINE_CPU_REF = {"mode": 14.670086, "H": -1038.38,
 # tail columns), K7's right-hand-side counts on its path, the dense
 # tolerance (kernel against plain: bit for bit expected)
 DENSE_DIM = 2051
-DENSE_R = (1, 128, 1000, 2051)
+DENSE_R = (1, 2, 32, 33, 128, 1000, 2051)
 DENSE_RTOL = 1e-12
 IID_FORMULA = "y ~ f(x, model='IWP', order={p}, k={k}) + f(g, model='IID')"
 IID_K, IID_Q, IID_M = 2000, 10_000, 1000
@@ -161,6 +169,10 @@ MERGED_SMALL_REF = {"mode": (0.96162838, 2.72002588),
 # The theta gradient there is large (~150), well above the Laplace
 # value's noise, so the two engines' gradients can be held to each other
 MERGED_GATE_THETA = (-0.298, 3.843)
+# where the merged fit ran away to before the prior quadratic became a sum
+# of squares, and how close the merged mode is held to phase 9's
+RUNAWAY_MODE = (51.240565, 4.359255)
+MERGED_MODE_TOL = 0.1
 # phase 14's check at phase 9's mode: the inner Newton with no step floor,
 # stopping after this many steps without a 5% smaller step (or at its
 # cap), and the central-difference step of the Laplace values there
@@ -202,6 +214,30 @@ def cuda_ms(fn, n=20, warm=2):
     t0.record()
     for _ in range(n):
         fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
+def graph_ms(fn, n=50):
+    """Device milliseconds per call: n calls captured in one CUDA graph,
+    replayed once, by CUDA events (no host time between the launches)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / n
@@ -321,10 +357,17 @@ def phase_kernels(bk, dev):
             library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
                 Lib, B, upper=upper)),
             nbytes=f8 * (D * W + D + 2 * D), flops=D * (2 * BW + 1))
+        rows[name]["device_ms"] = graph_ms(lambda: fn(L, rinv, B))
+        rows[name]["library_device_ms"] = graph_ms(
+            lambda: torch.linalg.solve_triangular(Lib, B, upper=upper))
+        log(f"  {name} r=1 device time (CUDA graph): kernel "
+            f"{rows[name]['device_ms']:.4f} ms, solve_triangular "
+            f"{rows[name]['library_device_ms']:.4f} ms")
         for r in (Q, 128):
             Br = torch.randn((D, r), generator=g, device=dev,
                              dtype=torch.float64)
             log(f"  {name} r={r}: {cuda_ms(lambda: fn(L, rinv, Br)):.4f} ms")
+    check_bwd_orders(bk, dev, g)
 
     Z = bk.band_takahashi(L, rinv)
     Zp = bk.band_takahashi_plain(L, rinv)
@@ -360,6 +403,24 @@ def phase_kernels(bk, dev):
             f"{r['bound_ms']:.6f} ms ({r['bound_by']}), "
             f"{r['ms'] / D * 1e3:.3f} us per column")
     return rows
+
+
+def check_bwd_orders(bk, dev, g):
+    """K3 at every register-window width (bw = 1..8, d = D, r = 1 and 3)
+    against its plain version, which sums a row farthest-first: bit for
+    bit; K5 on the same factor keeps the nearest-first order."""
+    for bw in range(1, bk.SMALL_BW + 1):
+        _, band, _, _ = spd_problem(dev, D, bw, 0, seed=10 + bw)
+        L, rinv, _, _, _ = bk.band_factor(band, band.new_zeros((D, 0)))
+        for r in (1, 3):
+            B = torch.randn((D, r), generator=g, device=dev,
+                            dtype=torch.float64)
+            check_equal(f"K3 bw={bw} r={r}", bk.band_bwd_solve(L, rinv, B),
+                        bk.band_bwd_solve_plain(L, rinv, B))
+        check_equal(f"K5 bw={bw}", bk.band_bwd_multi(L, rinv, B),
+                    bk.band_bwd_multi_plain(L, rinv, B))
+    log(f"  K3 bit for bit with its farthest-first plain version at d={D}, "
+        f"bw = 1..{bk.SMALL_BW}, r = 1 and 3 (K5, nearest-first, too): ok")
 
 
 def check_other_shapes(bk, dev):
@@ -423,10 +484,10 @@ def check_equal(name, got, want):
 
 def check_batched_against_one_system(bk, bb, tag, bands, Bs):
     """K8-K11 on a batch against their plain versions (RTOL) and, system
-    by system, against K1 (no tail), K2, K3 and K4 bit for bit. Past
-    bk.SMALL_BW, where K2/K3 sum a row farthest-first and K9/K10 keep the
-    nearest-first generic code, K9/K10 are held per system to K2/K3 at
-    RTOL and K10 to K5 (the same generic code) bit for bit. Returns the
+    by system, against K1 (no tail), K4 and K5 bit for bit (K10 runs K5's
+    nearest-first code), and K9 against K2 bit for bit up to bk.SMALL_BW.
+    K3, and K2 past bk.SMALL_BW, sum a row farthest-first: K10 and, past
+    that width, K9 are held per system to them at RTOL. Returns the
     factor and the largest kernel-plain difference per kernel."""
     nr, d, _ = bands.shape
     L, rinv, hld, _ = bb.band_factor_batched(bands)
@@ -462,15 +523,15 @@ def check_batched_against_one_system(bk, bb, tag, bands, Bs):
         for B, Y, X in sols:
             Br = B[r].contiguous()
             Y1 = bk.band_fwd_solve(L1, rinv1, Br)
-            X1 = bk.band_bwd_solve(L1, rinv1, Br)
             if one_order:
-                same &= torch.equal(Y[r], Y1) and torch.equal(X[r], X1)
+                same &= torch.equal(Y[r], Y1)
             else:
                 check_close(f"K9 {tag} system {r} against K2", Y[r], Y1)
-                check_close(f"K10 {tag} system {r} against K3", X[r], X1)
-                same &= torch.equal(X[r], bk.band_bwd_multi(L1, rinv1, Br))
+            check_close(f"K10 {tag} system {r} against K3", X[r],
+                        bk.band_bwd_solve(L1, rinv1, Br))
+            same &= torch.equal(X[r], bk.band_bwd_multi(L1, rinv1, Br))
     log(f"  K8-K11 {tag}: every system against K1 (q=0), "
-        + ("K2, K3" if one_order else "K5") + f", K4 bit for bit "
+        + ("K2, " if one_order else "") + f"K4 and K5 bit for bit "
         f"{'ok' if same else 'FAIL'}")
     require(same, f"{tag}: batched kernels equal the one-system kernels")
     return (L, rinv), errs
@@ -643,9 +704,19 @@ def phase_headline(tbg, bk, dev):
                 "headline", lambda: be.value_and_grad(th, be.init_state()))
     log(f"  mode {mode:.6f}, H {H:.4f}, lognormconst {lnc:.6f}, "
         f"node nlls {np.round(fit.mod.lognll, 4).tolist()}")
-    log(f"  fit 2: mode {float(fit2.mod.mode[0]):.6f}, lognormconst "
+    log(f"  fit 2: mode {float(fit2.mod.mode[0]):.6f}, H "
+        f"{float(fit2.mod.hessian[0, 0]):.4f}, lognormconst "
         f"{float(fit2.mod.lognormconst):.6f}")
     log(f"  CPU-f64 reference (JAX package): {HEADLINE_CPU_REF}")
+    log_fd_spread("headline", be, fit.mod, lambda st: (st[0], st[1]))
+    # the driver's prior quadratic at the port's mode and at the JAX
+    # package's: the expanded form the JAX package evaluates, the sum of
+    # squares the port evaluates, and the longdouble arbiter
+    for th in (mode, HEADLINE_CPU_REF["mode"]):
+        th = np.asarray([th])
+        val, _, (V, t) = be.value_and_grad(th, be.init_state())
+        log(f"  Laplace nll at theta {th[0]:.6f}, cold: {float(val):.6f}")
+        log_prior_quad("headline", be, V, t, th)
     log(f"  launches in fit 1: {launches}")
     require(math.isfinite(mode) and math.isfinite(lnc),
             "finite headline mode and lognormconst")
@@ -866,7 +937,17 @@ def phase_dense_kernels(cd, dev):
             Xp = cd.dense_solve_lower_plain(Lkk, rhs[r], trans)
             tag = f"K7 r={r}{' trans' if trans else ''}"
             err7 = max(err7, check_close(tag, X, Xp, rtol=DENSE_RTOL))
-            log_equal(tag, X, Xp)
+            check_equal(tag, X, Xp)
+    # a block of a larger matrix whose rows are not 16-byte aligned (the
+    # kernel's 8-byte staging path)
+    wide = torch.zeros((cd.B, cd.B + 1), dtype=torch.float64, device=dev)
+    wide[:, 1:] = Lkk
+    for trans in (False, True):
+        check_equal(f"K7 unaligned block r=33{' trans' if trans else ''}",
+                    cd.dense_solve_lower(wide[:, 1:], rhs[33], trans),
+                    cd.dense_solve_lower_plain(Lkk, rhs[33], trans))
+    log(f"  K7 bit for bit with its plain version at r = {DENSE_R}, "
+        "forward and transposed: ok")
     Lk, Lpl = cd.cholesky_blocked(A), cd.cholesky_blocked(A, cd.PLAIN)
     check_close(f"blocked factor dim {DENSE_DIM}", Lk, Lpl, rtol=DENSE_RTOL)
     log_equal("blocked factor", Lk, Lpl)
@@ -911,15 +992,41 @@ def phase_dense_kernels(cd, dev):
         r_t = cuda_ms(lambda: cd.dense_solve_lower(Lkk, Br, True))
         log(f"  K7 r={r}: {r_ms:.4f} ms, transposed {r_t:.4f} ms, "
             f"{r_ms / max(r, 1) * 1e3:.3f} us per column")
+    # K7 against solve_triangular at the path's two widths (r = 1: the
+    # Newton and gradient solves; r = 2051: the log-det backward), both
+    # directions: by CUDA events around back-to-back calls (host and
+    # device, as the fit calls them) and from a CUDA graph (device only)
+    k7 = {}
+    for r in (1, DENSE_R[-1]):
+        Br = rhs[r]
+        for trans in (False, True):
+            Lt = Lkk.T if trans else Lkk
+            kern = lambda: cd.dense_solve_lower(Lkk, Br, trans)
+            lib = lambda: torch.linalg.solve_triangular(Lt, Br, upper=trans)
+            t = dict(ms=cuda_ms(kern), library_ms=cuda_ms(lib),
+                     device_ms=graph_ms(kern),
+                     library_device_ms=graph_ms(lib))
+            k7[(r, trans)] = t
+            log(f"  K7 r={r}{' trans' if trans else ''}: kernel "
+                f"{t['ms']:.4f} ms, solve_triangular {t['library_ms']:.4f} "
+                f"ms (events); device {t['device_ms']:.4f} ms against "
+                f"{t['library_device_ms']:.4f} ms (CUDA graph)")
     r = DENSE_R[-1]                    # the log-det backward's width
     Br = rhs[r]
     rows["dense_solve_lower"] = dict(
-        err=err7, ms=cuda_ms(lambda: cd.dense_solve_lower(Lkk, Br)),
+        err=err7, ms=k7[(r, False)]["ms"],
         plain_ms=cuda_ms(lambda: cd.dense_solve_lower_plain(Lkk, Br), n=3,
                          warm=1),
-        library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
-            Lkk, Br, upper=False)),
-        nbytes=f8 * (tri + 2 * nb * r), flops=nb * nb * r, r=r)
+        library_ms=k7[(r, False)]["library_ms"],
+        nbytes=f8 * (tri + 2 * nb * r), flops=nb * nb * r, r=r,
+        device_ms=k7[(r, False)]["device_ms"],
+        library_device_ms=k7[(r, False)]["library_device_ms"],
+        ms_r1=k7[(1, False)]["ms"], library_ms_r1=k7[(1, False)]["library_ms"],
+        device_ms_r1=k7[(1, False)]["device_ms"],
+        library_device_ms_r1=k7[(1, False)]["library_device_ms"],
+        bound_ms_r1=bound(f8 * (tri + 2 * nb), nb * nb)[0],
+        plain_ms_r1=cuda_ms(lambda: cd.dense_solve_lower_plain(Lkk, rhs[1]),
+                            n=3, warm=1))
     for name, row in rows.items():
         row["bound_ms"], row["bound_by"] = bound(row["nbytes"], row["flops"])
         log(f"  {name}: kernel {row['ms']:.4f} ms, plain "
@@ -1016,14 +1123,25 @@ def phase_scatter_headline(tbg, si, cd, bk, dev):
     torch.cuda.reset_peak_memory_stats()
     cd.reset_launches()
     bk.reset_launches()
-    with CountCalls(torch.linalg, "cholesky", "cholesky_ex",
-                    "solve_triangular") as lib, CountCalls(
-            si.ScatterIIDBackend, "value_and_grad", "laplace_eval_full",
-            "newton_step") as calls:
-        t0 = time.perf_counter()
-        fit = tbg.model_fit(fml, **kw)
-        torch.cuda.synchronize()
-        wall1 = time.perf_counter() - t0
+    by_r = {"r=1": 0, "r>1": 0}     # K7 launches by right-hand sides
+    solve = cd.KERNELS.solve_lower
+
+    def counted(L, Bm, trans=False):
+        by_r["r=1" if Bm.shape[1] == 1 else "r>1"] += 1
+        return solve(L, Bm, trans)
+
+    cd.KERNELS.solve_lower = counted
+    try:
+        with CountCalls(torch.linalg, "cholesky", "cholesky_ex",
+                        "solve_triangular") as lib, CountCalls(
+                si.ScatterIIDBackend, "value_and_grad", "laplace_eval_full",
+                "newton_step") as calls:
+            t0 = time.perf_counter()
+            fit = tbg.model_fit(fml, **kw)
+            torch.cuda.synchronize()
+            wall1 = time.perf_counter() - t0
+    finally:
+        cd.KERNELS.solve_lower = solve
     launches = dict(cd.launches)
     band = dict(bk.launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1045,9 +1163,11 @@ def phase_scatter_headline(tbg, si, cd, bk, dev):
     log(f"  marginal theta grids {grids}")
     log(f"  fit 2: mode {np.round(fit2.mod.mode, 6).tolist()}, lognormconst "
         f"{fit2.mod.lognormconst:.6f}")
-    log(f"  launches in fit 1: {launches} ({nfac} dense factors), band "
-        f"kernels {band}, torch.linalg calls {lib.calls}; Laplace "
-        f"evaluations and Newton steps {calls.calls}")
+    log(f"  launches in fit 1: {launches} ({nfac} dense factors; K7 by "
+        f"right-hand sides {by_r}), band kernels {band}, torch.linalg calls "
+        f"{lib.calls}; Laplace evaluations and Newton steps {calls.calls}")
+    log_fd_spread("scattered-IID headline", be, m,
+                  lambda st: (st[0], st[1], st[2]))
     require(np.all(np.isfinite(m.mode)) and math.isfinite(m.lognormconst),
             "finite scattered-IID mode and lognormconst")
     require(fit.samps.shape == (IID_K - 1 + IID_Q + 3, IID_M)
@@ -1060,7 +1180,30 @@ def phase_scatter_headline(tbg, si, cd, bk, dev):
             and m.lognormconst == fit2.mod.lognormconst
             and np.array_equal(fit.samps, fit2.samps),
             "the second scattered-IID fit repeats the first")
-    return fit, launches, wall1, wall2
+    require(by_r["r=1"] + by_r["r>1"] == launches["dense_solve_lower"],
+            f"K7 launches counted by width: {by_r}")
+    return fit, launches, wall1, wall2, by_r
+
+
+def log_fd_spread(label, be, m, latent):
+    """The outer FD Hessian (h = 1e-4) at the fit's mode, warm-started
+    from a cold state and from three of the fit's node states (the first,
+    the middle and the last): its spread is the value's noise there
+    (ROADMAP Queue 3 #2)."""
+    J = len(m.states)
+    starts = [("cold", be.init_state())] + [
+        (f"node {j}", latent(m.states[j])) for j in sorted({0, J // 2, J - 1})]
+    Hs = []
+    for tag, st in starts:
+        H = be.hess(np.asarray(m.mode), st)
+        Hs.append(H)
+        log(f"    {label}: FD Hessian at the mode, warm from {tag}: "
+            f"{np.round(H, 4).tolist()}")
+    Hs = np.stack(Hs)
+    log(f"  {label}: FD Hessian across {len(Hs)} warm starts: min "
+        f"{np.round(Hs.min(0), 4).tolist()}, max "
+        f"{np.round(Hs.max(0), 4).tolist()}; the fit's "
+        f"{np.round(m.hessian, 4).tolist()}")
 
 
 def phase_scattered(tbg, cd, dev):
@@ -1470,20 +1613,27 @@ def phase_merged_headline(tbg, bk, cd, dev, scatter_fit):
     log(f"  warnings of fit 1: {[str(w.message) for w in warned]}")
     sm = scatter_fit.mod
     dmode = np.abs(np.asarray(m.mode) - np.asarray(sm.mode))
-    dlnc = abs(m.lognormconst - sm.lognormconst)
-    log(f"  against phase 9's scatter_iid fit of the same data (recorded, "
-        f"not asserted: both are noisy): mode {np.round(sm.mode, 6).tolist()}"
-        f", lognormconst {sm.lognormconst:.6f}; |diff| mode "
-        f"{np.round(dmode, 6).tolist()}, lognormconst {dlnc:.6f}"
-        + (" -- above 0.1 / 1 nat" if dmode.max() > 0.1 or dlnc > 1 else ""))
+    dlnc = m.lognormconst - sm.lognormconst
+    log(f"  against phase 9's scatter_iid fit of the same data: mode "
+        f"{np.round(sm.mode, 6).tolist()}, lognormconst "
+        f"{sm.lognormconst:.6f}; |diff| mode {np.round(dmode, 6).tolist()} "
+        f"(held to {MERGED_MODE_TOL}), lognormconst merged - scatter_iid "
+        f"{dlnc:.6f} (logged, not held: ROADMAP Queue 3 #4)")
+    # the outer Hessian AGHQ's rule is built on (logged, not held: the
+    # merged value's noise can leave it indefinite, Queue 3 #4)
+    for name, H in (("merged", m.hessian), ("scatter_iid", sm.hessian)):
+        ev = np.linalg.eigvalsh(np.asarray(H, np.float64))
+        log(f"  {name} outer Hessian eigenvalues {ev.tolist()}: positive "
+            f"definite {bool(ev.min() > 0)}")
     sbe = sm.backend
-    rel = []
+    rel, vals = [], {}
     for th in (np.asarray(MERGED_GATE_THETA), np.asarray(sm.mode),
                np.asarray(m.mode)):
         vm, gm, stm = be.value_and_grad(th, be.init_state())
         vs, gs, sts = sbe.value_and_grad(th, sbe.init_state())
         gm, gs = gm.cpu().numpy(), gs.cpu().numpy()
         rel.append(float(np.abs(gm - gs).max() / np.abs(gs).max()))
+        vals[tuple(th)] = float(vm)
         log(f"  Laplace nll and gradient at {np.round(th, 6).tolist()}, "
             f"cold: merged {float(vm):.6f} {np.round(gm, 4)}, scatter_iid "
             f"{float(vs):.6f} {np.round(gs, 4)}; gradients differ by "
@@ -1491,15 +1641,30 @@ def phase_merged_headline(tbg, bk, cd, dev, scatter_fit):
         gate_diagnostic(be, th)
         log_prior_quad("merged", be, stm[0], stm[1], th)
         log_prior_quad("scatter_iid", sbe.core, sts[0], sts[2], th)
+    # far out in theta_IWP, where the expanded prior quadratic let the
+    # earlier fits run away, the value is above its value at the mode
+    v_mode = vals[tuple(np.asarray(m.mode))]
+    far = {}
+    for th in ((40.0, float(m.mode[1])), RUNAWAY_MODE):
+        far[th] = float(be.laplace_nll(np.asarray(th), be.init_state())[0])
+        log(f"  merged Laplace nll at {th}, cold: {far[th]:.6f} (at the "
+            f"mode {v_mode:.6f})")
     tight_fd(be, sbe, np.asarray(sm.mode))
     # the merged engine's theta gradient at MERGED_GATE_THETA is the
     # scattered-IID engine's: the half-log-det backward keeps the log-det's
-    # cotangents on this healthy factor. At the modes they are logged, not
-    # held: there the merged value carries the rounding of the expanded
-    # prior quadratic times e^theta_IWP (ROADMAP Queue 3 #1), which the
-    # central differences of tight_fd show.
+    # cotangents on this healthy factor
     require(rel[0] <= 1e-3, f"the merged theta gradient at "
             f"{MERGED_GATE_THETA} within 1e-3 of the scattered-IID engine's")
+    require(dmode.max() <= MERGED_MODE_TOL, f"the merged mode within "
+            f"{MERGED_MODE_TOL} of the scattered-IID mode: {dmode.tolist()}")
+    require(all(v > v_mode for v in far.values()), "the merged value at "
+            f"theta_IWP = 40 and at {RUNAWAY_MODE} above its value at the "
+            f"mode: {far} against {v_mode}")
+    gate_warned = [str(w.message) for w in warned
+                   if issubclass(w.category, RuntimeWarning)
+                   and "sick-factor gate" in str(w.message)]
+    require(not gate_warned, f"no sick-factor gate warning at the merged "
+            f"mode: {gate_warned}")
     require((be.d, be.Wl - 1, be.q) == (13993, 34, 3)
             and be.dpad == MERGED_SHAPE[0], "the merged layout")
     require(np.all(np.isfinite(m.mode)) and math.isfinite(m.lognormconst),
@@ -1516,25 +1681,37 @@ def phase_merged_headline(tbg, bk, cd, dev, scatter_fit):
 
 
 def log_prior_quad(name, be, V, t, th):
-    """The driver's prior quadratic (V' - Z0 t)^T P (V' - Z0 t) at an inner
-    mode, as the engines expand it (fast/iwp.py, fast/banded.py
-    _prior_neg: V'^T P V' - 2 t^T Z0^T P V' + t^T Z0^T P Z0 t, from the
-    host-built P_band, PZ0 and Z0PZ0), and with r = V' - Z0 t formed
-    first. The value carries half of it times e^theta_IWP: the gap of the
-    two forms times that is how far the value's prior term is uncertain
-    in nats."""
+    """The driver's prior quadratic r^T P r, r = V' - Z0 t, at an inner
+    mode, three ways: expanded from the host-built arrays (V'^T P V' -
+    2 t^T PZ0^T V' + t^T Z0PZ0 t, over P's band: how the JAX package
+    evaluates it), as the engines take it (the sum of squares
+    sum w (T r)^2, f64 on the card), and, as the arbiter neither form
+    supplies, that sum of squares in numpy.longdouble on the host from
+    the same f64 arrays. The value carries half of it times
+    e^theta_IWP."""
     with torch.no_grad():
         Vd = V[:be.d]
-        terms = [float(be.prior_quad_V(V)),
-                 float(2.0 * torch.dot(t, be.PZ0.T @ Vd)),
+        Pb = be.P_band
+        vpv = (Pb[0] * Vd * Vd).sum()
+        for o in range(1, Pb.shape[0]):
+            vpv = vpv + 2.0 * (Pb[o, :be.d - o] * Vd[o:] * Vd[:-o]).sum()
+        terms = [float(vpv), float(2.0 * torch.dot(t, be.PZ0.T @ Vd)),
                  float(t @ (be.Z0PZ0 @ t))]
-        direct = float(be.prior_quad_V(Vd - be.Z0 @ t))
+        sos = float(be.prior_quad(be.to_V(V, t)))
+    ld = np.longdouble
+    r = (Vd.cpu().numpy().astype(ld)
+         - be.Z0.cpu().numpy().astype(ld) @ t.cpu().numpy().astype(ld))
+    Td = be.Tdiags.cpu().numpy().astype(ld)
+    U = Td[0] * r
+    for o in range(1, Td.shape[0]):
+        U[o:] += Td[o, o:] * r[:-o]
+    arbiter = (be.prior_w.cpu().numpy().astype(ld) * U * U).sum()
     expanded = terms[0] - terms[1] + terms[2]
     half = 0.5 * math.exp(th[0])
-    log(f"    {name} prior quadratic: terms {terms}, expanded {expanded:.6e}"
-        f", with r = V' - Z0 t formed first {direct:.6e}; 0.5 e^theta "
-        f"times the expanded one {half * expanded:.6e}, times the gap "
-        f"{half * (expanded - direct):.3e} nats")
+    log(f"    {name} prior quadratic: expanded {expanded:.6e} (terms "
+        f"{terms}), sum of squares {sos:.6e}, longdouble arbiter "
+        f"{float(arbiter):.6e}; times 0.5 e^theta: {half * expanded:.6e}, "
+        f"{half * sos:.6e}, {half * float(arbiter):.6e} nats")
 
 
 def tight_fd(be, sbe, th):
@@ -1700,9 +1877,10 @@ def main():
     phase_batched_fixed_point(batched, bb, be, ys16, modes16)
     launches.update(rep_launches)
     phase_scatter_small(tbg, dev)
-    ifit, iid_launches, iwall1, iwall2 = phase_scatter_headline(
+    ifit, iid_launches, iwall1, iwall2, k7_by_r = phase_scatter_headline(
         tbg, si, cd, bk, dev)
     launches.update(iid_launches)
+    rows["dense_solve_lower"]["launches_by_r"] = k7_by_r
     swall = phase_scattered(tbg, cd, dev)
     ibe, itheta = phase_scatter_fixed_point(cd, ifit)
     log("== phase 12: profiled scattered-IID Laplace evaluation")
@@ -1736,6 +1914,11 @@ def main():
             row["ms_by_systems"] = r["ms_by_systems"]
         if "r" in r:            # K7: timed at this many right-hand sides
             row["r"] = r["r"]
+        for key in ("device_ms", "library_device_ms", "ms_r1",
+                    "library_ms_r1", "device_ms_r1", "library_device_ms_r1",
+                    "bound_ms_r1", "plain_ms_r1", "launches_by_r"):
+            if key in r:        # K2/K3/K7: device times; K7 at r = 1
+                row[key] = r[key]
         if "shape" in r:        # K1c-K5c: K1-K5 at the merged shape
             row.update(shape=r["shape"], plain_rows=r["plain_rows"],
                        ms_by_shape=r["ms_by_shape"])

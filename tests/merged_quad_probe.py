@@ -8,21 +8,22 @@ the Laplace nll and its theta gradient, cold, at a sweep of thetas of
 the bench_bigiid model (an IWP3 smooth plus an IID term whose levels are
 clustered in x, Poisson). At each theta the script prints, for the
 merged engines' inner modes, the smallest band pivot and the gate's
-reasons, and the three terms of the driver's prior quadratic as the
-engines expand it,
+reasons, and the driver's prior quadratic r^T P r, r = V' - Z0 t, three
+ways: expanded from the host-built arrays, as the JAX package evaluates
+it,
 
-  (V' - Z0 t)^T P (V' - Z0 t) = V'^T P V' - 2 t^T Z0^T P V' + t^T Z0^T P Z0 t,
+  V'^T P V' - 2 t^T Z0^T P V' + t^T Z0^T P Z0 t,
 
-beside the same quadratic with r = V' - Z0 t formed first, and the
+as the port's engines take it, the sum of squares sum_i w_i ((T r)_i)^2
+(P = T^T diag(w) T), and that sum in numpy.longdouble from the same f64
+arrays, the arbiter neither form supplies. It also prints the
 eigenvalues of the inner Hessian on the directions V' = Z0 t. Once, it
 prints the eigenvalues of the (q, q) matrix N that the expanded form
 takes on those directions, its null space in exact arithmetic:
 N = Z0^T P Z0 - PZ0^T Z0 - Z0^T PZ0 + Z0PZ0, with P_band, PZ0 and
 Z0PZ0 as the host builds them (apart from each other). The value
-carries 0.5 e^theta_IWP times the quadratic and the inner Hessian
-e^theta_IWP times the form: where e^theta_IWP times a negative
-eigenvalue of N outweighs the likelihood's and the other priors'
-curvature, the inner objective is unbounded below along V' = Z0 t.
+carries 0.5 e^theta_IWP times the quadratic: where the expanded form is
+rounding of either sign, the value is unbounded below in theta_IWP.
 
     python tests/merged_quad_probe.py               # CPU f64, n = 1e4,
         # IWP3 k = 200, 1,000 levels merged (bw = 34, q = 3, as at full
@@ -62,32 +63,64 @@ def bigiid_data(n, q, seed=0):
     return {"y": y, "x": x, "g": g}
 
 
-def quad_terms(be, V, t, dot):
-    """The expanded quadratic's three terms, and the quadratic with r =
-    V' - Z0 t formed first."""
-    Vd = V[:be.d]
-    terms = [float(be.prior_quad_V(V)), float(2.0 * dot(t, be.PZ0.T @ Vd)),
-             float(t @ (be.Z0PZ0 @ t))]
-    return terms, float(be.prior_quad_V(Vd - be.Z0 @ t))
+def _host(a):
+    return np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a,
+                      np.float64)
 
 
-def show_quad(name, terms, direct, th):
-    expanded = terms[0] - terms[1] + terms[2]
+def band_apply(Pb, X):
+    """P X for the symmetric band Pb[o, j] = P[j+o, j] and X (d,) or (d, m),
+    in the array's own type."""
+    d = Pb.shape[1]
+    Pb = Pb.reshape(Pb.shape + (1,) * (X.ndim - 1))
+    out = Pb[0] * X
+    for o in range(1, Pb.shape[0]):
+        out[o:] += Pb[o, :d - o] * X[:-o]
+        out[:-o] += Pb[o, :d - o] * X[o:]
+    return out
+
+
+def quad_forms(be, V, t, w):
+    """The driver's prior quadratic at (V', t), from either package's
+    backend arrays and the port's weights w of P = T^T diag(w) T: (the
+    expanded form's three terms and value in f64, the sum of squares in
+    f64, the sum of squares in longdouble)."""
+    d = be.d
+    Vd, t = _host(V)[:d], _host(t)
+    Pb, Td, Z0 = _host(be.P_band), _host(be.Tdiags), _host(be.Z0)
+    terms = [float(Vd @ band_apply(Pb, Vd)),
+             float(2.0 * t @ (_host(be.PZ0).T @ Vd)),
+             float(t @ (_host(be.Z0PZ0) @ t))]
+    w = _host(w)
+    out = []
+    for typ in (np.float64, np.longdouble):
+        r = Vd.astype(typ) - Z0.astype(typ) @ t.astype(typ)
+        Tt = Td.astype(typ)
+        U = Tt[0] * r
+        for o in range(1, Tt.shape[0]):
+            U[o:] += Tt[o, o:] * r[:-o]
+        out.append((w.astype(typ) * U * U).sum())
+    return terms, terms[0] - terms[1] + terms[2], out[0], out[1]
+
+
+def show_quad(name, forms, th):
+    terms, expanded, sos, arbiter = forms
     half = 0.5 * math.exp(th[0])
-    print(f"    {name} quadratic: terms {terms}, expanded {expanded:.6e}, "
-          f"r formed first {direct:.6e}; 0.5 e^theta x expanded "
-          f"{half * expanded:.6e}, x the gap {half * (expanded - direct):.3e}"
-          f" nats", flush=True)
+    print(f"    {name} prior quadratic: expanded {expanded:.6e} (terms "
+          f"{terms}), sum of squares {float(sos):.6e}, longdouble arbiter "
+          f"{float(arbiter):.6e}; times 0.5 e^theta: {half * expanded:.6e}, "
+          f"{half * float(sos):.6e}, {half * float(arbiter):.6e} nats",
+          flush=True)
 
 
 def null_form(be):
     """Eigenvalues of N, the expanded prior form on V' = Z0 t."""
-    Z0 = be.Z0
-    PZ = torch.stack([be._applyP(Z0[:, i]) for i in range(be.q)], dim=1)
-    N = Z0.T @ PZ - be.PZ0.T @ Z0 - Z0.T @ be.PZ0 + be.Z0PZ0
-    ev = torch.linalg.eigvalsh(0.5 * (N + N.T)).cpu().numpy()
+    Z0, PZ0, Z0PZ0 = _host(be.Z0), _host(be.PZ0), _host(be.Z0PZ0)
+    N = (Z0.T @ band_apply(_host(be.P_band), Z0) - PZ0.T @ Z0 - Z0.T @ PZ0
+         + Z0PZ0)
+    ev = np.linalg.eigvalsh(0.5 * (N + N.T))
     print(f"  the expanded prior form on V' = Z0 t: eigenvalues of N {ev} "
-          f"(largest |entry| of Z0PZ0 {float(be.Z0PZ0.abs().max()):.3e})",
+          f"(largest |entry| of Z0PZ0 {np.abs(Z0PZ0).max():.3e})",
           flush=True)
 
 
@@ -171,7 +204,7 @@ def main():
             print(f"    port merged: smallest pivot "
                   f"{float((af.rinv ** -2).min()):.3e}, gate reasons "
                   f"(pivot clamped, tail left, not finite) {reasons}")
-            show_quad("port merged", *quad_terms(bm, V, t, torch.dot), th)
+            show_quad("port merged", quad_forms(bm, V, t, bm.prior_w), th)
             print(f"    port merged: inner Hessian on V' = Z0 t, eigenvalues "
                   f"{restricted_hessian(bm, V, t, th)}", flush=True)
         if ref is not None:
@@ -180,7 +213,7 @@ def main():
             Vj, tj = mode(jnp.asarray(th))
             print(f"  JAX merged (BlockEngine) {float(vj):.6f} "
                   f"{np.asarray(gj)}", flush=True)
-            show_quad("JAX merged", *quad_terms(jb, Vj, tj, jnp.dot), th)
+            show_quad("JAX merged", quad_forms(jb, Vj, tj, bm.prior_w), th)
         print(f"  {time.perf_counter() - t0:.1f} s", flush=True)
 
 

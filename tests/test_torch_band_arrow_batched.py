@@ -31,6 +31,8 @@ from bayesgp_torch.linalg.band_arrow_batched import BandArrowBatchedEngine
 
 from test_torch_band_arrow import _arrow_problem
 
+from _jax_quick import quick_jit
+
 torch.set_num_threads(1)
 
 D, BW, Q, NR, S = 48, 3, 5, 4, 8
@@ -92,7 +94,7 @@ def test_cotangents_match_jax_block_vmap_engine(systems):
     ct = jnp.asarray(s["ct"].numpy())
     jargs = (jnp.asarray(s["bands"]), jnp.asarray(s["Cs"]),
              jnp.asarray(s["Hds"]))
-    val, gj = jax.jit(jax.value_and_grad(
+    val, gj = quick_jit(jax.value_and_grad(
         lambda *a: jnp.sum(ct * jeng.arrow_half_logdet(*a)),
         argnums=(0, 1, 2)))(*jargs)
     hld = s["eng"].half_logdet(s["eng"].factor(*s["targs"]))

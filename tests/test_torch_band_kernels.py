@@ -1,22 +1,19 @@
-"""bayesgp_torch band kernels K1-K5: each plain version (the CPU path of
+"""bayesgp_torch band kernels K1-K3: each plain version (the CPU path of
 its CUDA wrapper) against the JAX package's Pallas kernel in interpret
-mode and against dense numpy, on the same numpy inputs.
+mode and against dense numpy, on the same numpy inputs. K4, K5 and the
+plain solves' summation orders are in test_torch_band_takahashi.py; the
+helpers here serve both files (and test_torch_band_batched.py).
 
 Tolerances: K1-K3 are double-float on the TPU side (~2^-48 relative),
-so rtol 1e-10; K4 and K5 run in f32 there, so rtol 1e-5 (with an
-absolute floor of 1e-5 of the largest entry, for entries near zero),
-and 1e-10 against dense f64 numpy.
+so rtol 1e-10, and 1e-10 against dense f64 numpy.
 
-The summation orders of the plain solves, at bw = 12 and 40 (d = 200,
-past SMALL_BW): K2/K3 farthest-first and K5 nearest-first, each equal
-bit for bit to a numpy loop in that order, and K2/K3 against
-scipy.linalg.solve_triangular on the dense factor at rtol 1e-12 (a
-well-conditioned band, f64 both sides).
+Four cases in this file and three in the other, on purpose: pytest-xdist's
+file scheduler hands out files in order of their case counts, and files
+of fewer cases than tests/test_mcmc.py (5) queue behind it.
 """
 import numpy as np
 import pytest
 import jax.numpy as jnp
-import scipy.linalg
 import torch
 
 from bayesgp_tpu.linalg import band_kernels as jbk
@@ -116,41 +113,6 @@ def test_factor_and_solves_match_pallas(d, bw):
                                atol=1e-12)
 
 
-@pytest.mark.parametrize("d,bw", [(64, 3), (40, 2)])
-def test_takahashi_and_multi_rhs_match_pallas(d, bw):
-    """K4 (band of H^{-1}) and K5 (L^T X = Z for many draws) against the
-    f32 Pallas kernels and dense f64 numpy."""
-    rng = np.random.default_rng(100 + d + bw)
-    A, band = _spd_band(rng, d, bw)
-    _, Lh, _, _, _ = _jax_factor(band, np.zeros((d, 0)), d, bw)
-    L, rinv, _, _, Lt = _torch_factor(band, np.zeros((d, 0)))
-    W, Rows = jbk.plan_rows(d, bw)
-
-    Zj = np.asarray(jbk.takahashi_fn(d, bw, interpret=True)(Lh),
-                    np.float64)[W:W + d, :bw + 1]
-    Z = bk.band_takahashi(Lt, rinv).numpy()
-    Hinv = np.linalg.inv(A)
-    np.testing.assert_allclose(Z, _zero_out_of_band(Zj), rtol=1e-5,
-                               atol=1e-5 * np.abs(Zj).max())
-    np.testing.assert_allclose(_dense_band(Z, bw),
-                               np.tril(Hinv) * (np.abs(
-                                   np.subtract.outer(np.arange(d),
-                                                     np.arange(d))) <= bw),
-                               rtol=1e-10, atol=1e-12)
-
-    M = 128
-    Zn = rng.normal(size=(d, M))
-    Bp = np.zeros((Rows, M), np.float32)
-    Bp[W:W + d] = Zn
-    Xj = np.asarray(jbk.bwd_multi_fn(d, bw, 1, tile=M, interpret=True)(
-        Lh, jnp.asarray(Bp)), np.float64)[W:W + d]
-    X = bk.band_bwd_multi(Lt, rinv, torch.tensor(Zn)).numpy()
-    Xref = np.linalg.solve(np.linalg.cholesky(A).T, Zn)
-    np.testing.assert_allclose(X, Xref, rtol=1e-10, atol=1e-12)
-    np.testing.assert_allclose(X, Xj, rtol=1e-5,
-                               atol=1e-5 * np.abs(Xref).max())
-
-
 @pytest.mark.parametrize("kind", ["tiny_negative", "order_one_negative"])
 def test_guarded_factor_finite_on_indefinite(kind):
     """The pivot clamp and caps keep K1's outputs finite on the two
@@ -178,58 +140,3 @@ def test_guarded_factor_finite_on_indefinite(kind):
     np.testing.assert_allclose(L, _zero_out_of_band(Lj), rtol=1e-6,
                                atol=1e-9)
     assert abs(hld - hldj) < 1e-6 * max(1.0, abs(hldj))
-
-
-def _loop_solve(L, rinv, B, trans, far_first):
-    """numpy loop of the band substitution, a row's products subtracted
-    farthest-first or nearest-first (the plain versions' orders)."""
-    d, W = L.shape
-    X = np.zeros_like(B)
-    for j in (range(d - 1, -1, -1) if trans else range(d)):
-        ts = range(1, min(W - 1, d - 1 - j if trans else j) + 1)
-        acc = B[j].copy()
-        for t in (reversed(ts) if far_first else ts):
-            acc = acc - ((L[j, t] * X[j + t]) if trans
-                         else (L[j - t, t] * X[j - t]))
-        X[j] = acc * rinv[j]
-    return X
-
-
-def _check_wide_band_orders():
-    for bw in (12, 40):
-        rng = np.random.default_rng(bw)
-        d = 200
-        _, band = _spd_band(rng, d, bw)
-        L, rinv, _, _, _ = bk.band_factor(torch.tensor(band.T.copy()),
-                                          torch.zeros((d, 0),
-                                                      dtype=torch.float64))
-        B = rng.normal(size=(d, R))
-        Ln, rn = L.numpy(), rinv.numpy()
-        Ld = _dense_band(Ln, bw)
-        for plain, trans, far in ((bk.band_fwd_solve_plain, False, True),
-                                  (bk.band_bwd_solve_plain, True, True),
-                                  (bk.band_bwd_multi_plain, True, False)):
-            X = plain(L, rinv, torch.tensor(B)).numpy()
-            np.testing.assert_array_equal(X, _loop_solve(Ln, rn, B, trans,
-                                                         far))
-            # the two orders round differently here
-            assert not np.array_equal(X, _loop_solve(Ln, rn, B, trans,
-                                                     not far))
-            if far:
-                np.testing.assert_allclose(
-                    X, scipy.linalg.solve_triangular(Ld, B, lower=True,
-                                                     trans=trans),
-                    rtol=1e-12, atol=1e-12 * np.abs(X).max())
-
-
-def test_wrappers_check_arguments():
-    """Wrappers refuse what the kernels do not take; and the plain solves'
-    summation orders past SMALL_BW (_check_wide_band_orders)."""
-    _check_wide_band_orders()
-    band = torch.ones((8, 4), dtype=torch.float64)
-    with pytest.raises(TypeError):
-        bk.band_factor(band.float(), torch.zeros((8, 0)))
-    with pytest.raises(ValueError):
-        bk.band_factor(band, torch.zeros((7, 2), dtype=torch.float64))
-    with pytest.raises(ValueError):
-        bk.band_fwd_solve(band, band[:, 0].contiguous(), band.T)

@@ -46,13 +46,10 @@ CPU in f64.
    tail with a warning, and an sGP driver and the Gaussian family raise
    naming their ROADMAP item.
 
-Every JAX program is traced once in the module fixture and compiled with
-XLA's CPU optimizations off (_jax_quick.XLA_QUICK), on threads beside the
-rest of the module:
-each runs a few times, and compiling them is most of the module's
-time.
+Every JAX program is traced and compiled once in the module fixture,
+with XLA's CPU optimizations off (_jax_quick.XLA_QUICK): each runs a few
+times, and compiling them is most of the module's time.
 """
-import concurrent.futures
 import dataclasses
 import warnings
 
@@ -193,23 +190,12 @@ def _vg_program(jbe):
         _spec((jbe.n_theta,), (jbe.dpad,), (jbe.q,)))
 
 
-class _Compiled(dict):
-    """name -> compiled program, each waited for at its first use."""
-
-    def __getitem__(self, key):
-        return super().__getitem__(key).result()
-
-
 def _compile_all(programs):
-    """{name: (fn, argument specs)} -> _Compiled: each program is traced
-    in turn and compiled on a thread of its own (XLA compiles outside the
-    GIL), beside the next tracing and the tests' own work."""
-    pool = concurrent.futures.ThreadPoolExecutor(len(programs))
-    out = _Compiled({k: pool.submit(jax.jit(fn).lower(*spec).compile,
-                                    XLA_QUICK)
-                     for k, (fn, spec) in programs.items()})
-    pool.shutdown(wait=False)
-    return out
+    """{name: (fn, argument specs)} -> {name: compiled program}, each
+    traced and compiled in turn on the calling thread (threads of its own
+    would take cores from the test files that run beside this one)."""
+    return {k: jax.jit(fn).lower(*spec).compile(XLA_QUICK)
+            for k, (fn, spec) in programs.items()}
 
 
 @pytest.fixture(scope="module")
@@ -371,7 +357,8 @@ def test_merged_build_and_fixed_point_match_jax(jax_ref, merged):
     tbe, _ = merged
     assert (tbe.d, tbe.dpad, tbe.Wl, tbe.q) == (44, 48, 12, 2)
     assert (tbe.G, tbe.d_drv, tbe.w_real) == (jbe.G, jbe.d_drv, jbe.w_real)
-    ja, ta = convert.banded_arrays(jbe), convert.banded_arrays(tbe)
+    ja = convert.banded_arrays(jbe, knots=tbe.term.knots)
+    ta = convert.banded_arrays(tbe)
     for key in (convert.BANDED_FIELDS + convert.BANDED_OPTIONAL
                 + convert.MODEL_FIELDS):
         a, b = np.asarray(ja[key], np.float64), np.asarray(ta[key])
@@ -406,9 +393,15 @@ def test_merged_build_and_fixed_point_match_jax(jax_ref, merged):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-9,
                                    atol=1e-9 * np.abs(want).max())
 
+    _check_prior_sum_of_squares(tbe, rng)
+
     # warm Laplace nll and theta gradient at a point off the mode
     th = np.array([0.3, -0.2])
     val, g, (Vs, ts) = tbe.value_and_grad(th, (nV, nt))
+    # the value is bounded below in theta_IWP: far above it (the prior
+    # then pins V' to Z0 t) it is larger than here
+    val40 = tbe.laplace_nll(torch.tensor([40.0, th[1]]))[0]
+    assert float(val40) > float(val), (float(val40), float(val))
     jval, jg = fns["vg"](np.asarray(th), np.asarray(nV.numpy()),
                          np.asarray(nt.numpy()))
     np.testing.assert_allclose(float(val), float(jval), rtol=1e-9)
@@ -417,6 +410,27 @@ def test_merged_build_and_fixed_point_match_jax(jax_ref, merged):
     tbe2 = convert.banded_from_arrays(ja, device="cpu")
     val2 = tbe2.laplace_nll(torch.tensor(th), (nV, nt))[0]
     np.testing.assert_allclose(float(val2), float(jval), rtol=1e-9)
+
+
+def _check_prior_sum_of_squares(tbe, rng):
+    """On the driver prior's null space V' = Z0 t the merged backend's
+    prior quadratic (a sum of squares) is >= 0 and below 1e-12 of the
+    largest term of the expanded form V'^T P V' - 2 t^T PZ0^T V' +
+    t^T Z0PZ0 t (which is rounding of either sign there)."""
+    Z0 = tbe.Z0.numpy()
+    Pb, d = tbe.P_band.numpy(), tbe.d
+    P = np.diag(Pb[0])
+    for o in range(1, Pb.shape[0]):
+        P += np.diag(Pb[o, :d - o], -o) + np.diag(Pb[o, :d - o], o)
+    for _ in range(3):
+        t = rng.normal(size=tbe.q)
+        Vd = Z0 @ t
+        terms = (Vd @ P @ Vd, 2.0 * t @ (tbe.PZ0.numpy().T @ Vd),
+                 t @ tbe.Z0PZ0.numpy() @ t)
+        Vp = torch.tensor(np.concatenate([Vd, np.zeros(tbe.dpad - d)]))
+        quad = float(tbe.prior_quad(tbe.to_V(Vp, torch.tensor(t))))
+        assert 0.0 <= quad <= 1e-12 * max(abs(x) for x in terms), (quad,
+                                                                   terms)
 
 
 def test_fit_tail_terms_and_routes(jax_ref, merged, monkeypatch):

@@ -29,6 +29,8 @@ from bayesgp_torch.model import build as tbuild
 from bayesgp_torch.fast.iwp import build_fast_iwp
 from bayesgp_torch.fast.batched import build_batched, max_replicates
 
+from _jax_quick import quick_jit
+
 torch.set_num_threads(1)
 
 N, K, R = 160, 10, 3
@@ -81,7 +83,7 @@ def _pair(family):
         f, st2 = jb.nll_warm(th, st)
         return jnp.sum(f), (f, st2)
 
-    jvg = jax.jit(jax.value_and_grad(sum_nll, has_aux=True))
+    jvg = quick_jit(jax.value_and_grad(sum_nll, has_aux=True))
     (_, (fj, stj)), gj = jvg(jnp.asarray(THETA), jb.init_state())
     ft, gt, stt = tb.value_and_grad(torch.tensor(THETA), tb.init_state())
     return dict(tbase=tbase, ys=ys, jb=jb, tb=tb, jvg=jvg,

@@ -51,7 +51,9 @@ def pair():
 
 def _jax_arrays(be):
     """The JAX backend's arrays in convert's dict format."""
-    out = {f: np.asarray(getattr(be, f)) for f in convert.ARRAY_FIELDS}
+    out = {f: np.asarray(getattr(be, f)) for f in convert.ARRAY_FIELDS
+           if f != "prior_w"}
+    out["prior_w"] = convert.driver_prior_w(be)  # the JAX package has none
     out.update({f: np.asarray(getattr(be.md, f))
                 for f in convert.MODEL_FIELDS})
     out.update(p=be.p, d=be.d, dpad=be.dpad, family=be.md.family,
@@ -93,6 +95,20 @@ def test_neg_log_post_matches(pair):
         for a, b in zip(gt, gj):
             np.testing.assert_allclose(a.numpy(), np.asarray(b),
                                        rtol=1e-10, atol=1e-10)
+    # the prior quadratic as the sum of squares sum w (T V)^2: the
+    # backend's weights are diff(knots), and the form agrees with
+    # V^T P_V V from the JAX package's band at the tolerance above
+    w = np.diff(np.asarray(tbe.term.knots, np.float64))
+    np.testing.assert_allclose(tbe.prior_w.numpy(), w, rtol=1e-13)
+    Pb, d = np.asarray(jbe.P_band, np.float64), jbe.d
+    PV = np.diag(Pb[0])
+    for o in range(1, Pb.shape[0]):
+        PV += np.diag(Pb[o, :d - o], -o) + np.diag(Pb[o, :d - o], o)
+    V = rng.normal(0, 0.3, d)
+    np.testing.assert_allclose(float(tbe.prior_quad(torch.tensor(V))),
+                               V @ PV @ V, rtol=1e-10)
+    np.testing.assert_allclose(tbe.prior_grad(torch.tensor(V)).numpy(),
+                               PV @ V, rtol=1e-10, atol=1e-10)
 
 
 def test_laplace_nll_and_gradient_match(pair):

@@ -12,6 +12,8 @@ import torch
 
 import bayesgp_torch as tbg
 
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|bayesgp_tpu)\b|from\s+(jax|bayesgp_tpu)\b)",

@@ -29,6 +29,8 @@ import bayesgp_torch as tbg
 from bayesgp_torch import api as tapi
 from bayesgp_torch import convert
 
+from _jax_quick import quick_jit
+
 torch.set_num_threads(1)
 
 FORMULA = "y ~ f(x, model='IWP', order=2, k=150) + f(g, model='IID')"
@@ -62,7 +64,9 @@ def port():
 
 
 def _jax_core_arrays(be):
-    out = {f: np.asarray(getattr(be, f)) for f in convert.ARRAY_FIELDS}
+    out = {f: np.asarray(getattr(be, f)) for f in convert.ARRAY_FIELDS
+           if f != "prior_w"}
+    out["prior_w"] = convert.driver_prior_w(be)  # the JAX package has none
     out.update({f: np.asarray(getattr(be.md, f))
                 for f in convert.MODEL_FIELDS})
     out.update(p=be.p, d=be.d, dpad=be.dpad, family=be.md.family,
@@ -131,7 +135,7 @@ def test_build_and_fixed_point_match_jax(ref, port):
     Vo, uo, to = (a + 0.05 * rng.normal(size=a.shape) for a in (V, u, t))
     Vo[tbe.core.d:] = 0.0
 
-    @jax.jit
+    @quick_jit
     def probe(V, u, t, th, wts, gV, gu, gt):
         factor = jbe.hessian_factor(V, u, t, th)
         return (jbe.neg_log_post(V, u, t, th), jbe.grad_W(V, u, t, th),
