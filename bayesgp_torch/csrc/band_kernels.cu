@@ -11,10 +11,10 @@
 // refused launch reaches the caller. The library is built with
 // -fmad=false: every product is rounded before it is added, as in the
 // plain PyTorch versions beside the wrappers, and each kernel sums in the
-// same order as its plain version, so the two agree bit for bit. (K3
-// sums a row farthest-first at every width, K2 nearest-first up to
-// SMALL_BW and farthest-first above it; K5 and the batched K9/K10
-// nearest-first at every width.)
+// same order as its plain version, so the two agree bit for bit. Every
+// solve sums a row's products in one order, farthest-first, except K1's
+// fused tail Y = L^{-1} C and the solve that extends it to wide tails
+// (bgt_band_tail_solve), which keep K1's nearest-first order.
 //
 // What these replace, and what bounds them on this card
 // ------------------------------------------------------
@@ -29,7 +29,8 @@
 // K4 band_takahashi replaces band_kernels.py:takahashi_fn (band of
 //                   H^{-1} from L, the backward Takahashi recurrence).
 // K5 band_bwd_multi replaces band_kernels.py:bwd_multi_fn (L^T X = Z for
-//                   the posterior draws, one column per draw).
+//                   the posterior draws, one column per draw): K3's
+//                   function, on K3's kernels.
 // K1c-K5c factor_chunked_fn, fwd_solve_chunked_fn, bwd_solve_chunked_fn,
 //                   bwd_multi_chunked_fn, takahashi_chunked_fn
 //                   (band_kernels.py:466-634), the same five functions
@@ -56,33 +57,35 @@
 // sqrt and a divide, each a software sequence of dependent f64
 // operations) -- tens of cycles a row in the solves, a few hundred a
 // column in K1, i.e. d x ~0.02-0.2 us. K5 has the same chain per
-// column of draws, with M / 128 blocks.
+// column of draws, the columns spread over the card's multiprocessors.
 //
 // Design against that floor. Nothing on a chain waits on device memory
-// or on a modulo: blocks stage the next STAGE rows of their inputs into
-// shared memory, and ring positions are stepped. For bandwidths up to
-// SMALL_BW (the IWP path has bw = p = 3) the kernels are compiled per
-// bandwidth and keep the recurrence window in registers:
-//   K1  one thread runs the column recurrence (pivot, sqrt, divide, the
-//       bw entries) with the last bw columns in registers and no
-//       barrier inside a chunk; a second warp computes the tail rows
-//       Y[j] = (C[j] - sum L[j, j-t] Y[j-t]) / L_jj of the previous
+// or on a modulo: blocks stage the next rows of their inputs into shared
+// memory ahead of the recurrence, and ring positions are stepped.
+//   K1  For bandwidths up to SMALL_BW (the IWP path has bw = p = 3) the
+//       factor is compiled per bandwidth and keeps the recurrence window
+//       in registers: one thread runs the column recurrence (pivot, sqrt,
+//       divide, the bw entries) with the last bw columns in registers
+//       and no barrier inside a chunk; a second warp computes the tail
+//       rows Y[j] = (C[j] - sum L[j, j-t] Y[j-t]) / L_jj of the previous
 //       chunk meanwhile, one thread per tail column; the log pivots are
-//       taken by the whole block after the loop.
-//   K2/K5  one thread per right-hand side with its last bw solution
-//       values in registers.
-//   K3  the same, but a row's products are subtracted farthest-first,
-//       so only the last one waits on the row just solved, and its tiles
-//       of rows are copied by cp.async one tile ahead (band_bwd_far).
-// Wider bands take generic kernels: threads across one column's band
-// entries and tail columns (K1) and a shared-memory ring for the window
-// (K5, the batched K9/K10 and K1's tail solve). There a row's sum puts
-// x_{j-1}, the value just computed, first, so every one of its bw
-// products sits on the row-to-row chain (~0.85 us a row at bw = 34).
-// K2 and K3 take warp kernels there instead (band_solve_warp below): a
-// right-looking substitution, one warp a right-hand side, that sums a
-// row farthest-first and leaves one multiply, one shuffle, one multiply
-// and one subtract on the chain from one row to the next.
+//       taken by the whole block after the loop. Wider bands take a
+//       generic kernel: threads across one column's band entries and
+//       tail columns.
+//   The solves (K2, K3, K5, K9, K10) sum each row farthest-first, so
+//       only the last product of a row waits on the row just solved: the
+//       chain from one row to the next is one multiply, one subtract and
+//       the scale by 1/L_jj. Up to SMALL_BW one thread per right-hand side
+//       keeps its last bw solution values in registers, with tiles of
+//       rows copied by cp.async one tile ahead (band_fwd_far,
+//       band_bwd_far); wider bands take a right-looking warp substitution,
+//       one warp a right-hand side (band_solve_warp), whose warps share
+//       one staged ring of L where a block holds several columns (K5's
+//       draws). K5 is K3 on M columns, and K9/K10 run K2's and K3's code
+//       at each system's offset.
+//   K1's tail columns past its block (bgt_band_tail_solve) keep K1's
+//       nearest-first order and cap, on their own kernels (band_tail_small
+//       with the window in registers, band_tail_kernel with a shared ring).
 // K4 runs once per gradient and keeps the generic form: threads across
 // the bw entries of a row of H^{-1}, two barriers a row.
 //
@@ -91,20 +94,17 @@
 // bw <= 125 (BW_MAX in the wrapper), any tail width and any d. No buffer
 // grows with d. K1's block holds the tail columns bgt_band_factor_tile
 // allows (its threads and shared memory); the wrapper computes the
-// others with bgt_band_tail_solve, K2 with K1's cap on |Y|, which sums
-// each column in K1's order.
+// others with bgt_band_tail_solve, a forward solve with K1's cap on |Y|
+// that sums each column in K1's order.
 //
 // The batched kernels. The TPU packed NR systems side by side on the 128
 // lanes because one system filled 6% of a vector; here a system is a
-// thread block. Every recurrence above is a __device__ function of one
-// system's pointers; the K1-K5 kernels call it on their arguments, the
-// K8-K11 kernels give the grid a system axis (blockIdx.x for K8 and K11,
-// blockIdx.y beside the column tiles for K9 and K10) and call it at that
-// system's offset. The chain of one system is as long as before, but up
-// to 132 of them run at once, one a multiprocessor, and system r of a
-// batched kernel runs the same device code as the one-system kernel: the
-// two agree bit for bit. K9/K10 blocks have as many threads as a system
-// has right-hand sides (rounded to a warp, at most RHS_THREADS).
+// thread block (K8, K11: blockIdx.x) or a row of the grid (K9, K10:
+// blockIdx.y beside the right-hand-side tiles). Every kernel offsets its
+// arrays to its system and runs the one-system code: the chain of one
+// system is as long as before, but up to 132 of them run at once, and
+// system r of a batched kernel agrees with the one-system kernel bit for
+// bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -118,13 +118,11 @@ constexpr int MAX_TAIL_SMALL = 480;  // tail columns of the small K1 block
 constexpr double PIVOT_FLOOR = 1e-12;
 constexpr double L_CAP = 1e3;
 constexpr double Y_CAP = 1e8;
-constexpr int RHS_THREADS = 128;     // threads per block in K2/K3/K5
+constexpr int RHS_THREADS = 128;     // threads a block of the solves
 constexpr int MAX_THREADS = 1024;    // threads a block may have
 constexpr size_t DEFAULT_SMEM = 48 * 1024;
 constexpr size_t MAX_SMEM = 227 * 1024;  // dynamic shared memory a block
                                          // may have on sm_90
-constexpr double NO_CAP = HUGE_VAL;  // the solves' cap: none (K2), or Y_CAP
-                                     // for the tail tiles K1 leaves to K2
 
 __device__ __forceinline__ double clip(double x, double cap) {
     // NaN propagates (like torch.clamp), unlike fmin/fmax
@@ -407,18 +405,19 @@ __global__ void band_factor_batched_kernel(const double* __restrict__ bands,
                    piv + od, hld + r, flag + r, d, bw, 0, sm);
 }
 
-// ---------------------------------------- K2, K5, K9, K10, bw <= 8 --
-// One thread per right-hand-side column with its last BW solution values
-// in registers; the block stages STAGE rows of the multipliers, 1/L_jj
-// and its right-hand sides at a time. A row's products are subtracted
-// nearest-first. (K3 has its own kernel, band_bwd_far, below.)
+// ------------------------------------- K1's tail solve (K2 with a cap) --
+// Y = L^{-1} C for the tail columns K1's block does not hold, each column
+// as K1 computes it: its products subtracted nearest-first (K1's order)
+// and |Y| capped at Y_CAP. One thread per column; the block stages STAGE
+// rows of the multipliers, 1/L_jj and its right-hand sides at a time.
+// bw <= SMALL_BW keeps the last BW solution values in registers, a wider
+// band a shared-memory ring.
 template <int BW>
-__device__ __forceinline__ void fwd_small(const double* __restrict__ L,
-                                          const double* __restrict__ rinv,
-                                          const double* __restrict__ B,
-                                          double* __restrict__ X,
-                                          int d, int r, double cap,
-                                          double* sm) {
+__global__ void band_tail_small(const double* __restrict__ L,
+                                const double* __restrict__ rinv,
+                                const double* __restrict__ B,
+                                double* __restrict__ X, int d, int r) {
+    extern __shared__ double sm[];
     constexpr int W = BW + 1;
     const int nt = blockDim.x;
     const int tx = threadIdx.x;
@@ -449,7 +448,7 @@ __device__ __forceinline__ void fwd_small(const double* __restrict__ L,
 #pragma unroll
             for (int t = 1; t <= BW; ++t)
                 if (t <= j) acc -= w[t - 1] * Ls[i * BW + t - 1];
-            const double v = clip(acc * Rs[i], cap);
+            const double v = clip(acc * Rs[i], Y_CAP);
 #pragma unroll
             for (int k = BW - 1; k > 0; --k) w[k] = w[k - 1];
             w[0] = v;
@@ -458,101 +457,12 @@ __device__ __forceinline__ void fwd_small(const double* __restrict__ L,
     }
 }
 
-template <int BW>
-__global__ void band_fwd_small(const double* __restrict__ L,
-                               const double* __restrict__ rinv,
-                               const double* __restrict__ B,
-                               double* __restrict__ X, int d, int r,
-                               double cap) {
+__global__ void band_tail_kernel(const double* __restrict__ L,
+                                 const double* __restrict__ rinv,
+                                 const double* __restrict__ B,
+                                 double* __restrict__ X,
+                                 int d, int bw, int r) {
     extern __shared__ double sm[];
-    fwd_small<BW>(L, rinv, B, X, d, r, cap, sm);
-}
-
-template <int BW>
-__device__ __forceinline__ void bwd_small(const double* __restrict__ L,
-                                          const double* __restrict__ rinv,
-                                          const double* __restrict__ B,
-                                          double* __restrict__ X,
-                                          int d, int r, double* sm) {
-    constexpr int W = BW + 1;
-    const int nt = blockDim.x;
-    const int tx = threadIdx.x;
-    const int c = blockIdx.x * nt + tx;
-    double* Ls = sm;                  // [STAGE][W] rows of L
-    double* Rs = Ls + STAGE * W;      // [STAGE] 1/L_jj
-    double* Bs = Rs + STAGE;          // [STAGE][nt] right-hand sides
-    double w[BW];                     // X[j+1 .. j+BW]
-#pragma unroll
-    for (int k = 0; k < BW; ++k) w[k] = 0.0;
-    for (int j1 = d; j1 > 0; j1 -= STAGE) {
-        const int j0 = max(0, j1 - STAGE);
-        const int rows = j1 - j0;
-        __syncthreads();
-        for (int i = tx; i < rows * W; i += nt)
-            Ls[i] = L[(size_t)j0 * W + i];
-        for (int i = tx; i < rows; i += nt) Rs[i] = rinv[j0 + i];
-        if (c < r)
-            for (int i = 0; i < rows; ++i)
-                Bs[i * nt + tx] = B[(size_t)(j0 + i) * r + c];
-        __syncthreads();
-        if (c >= r) continue;
-#pragma unroll 4
-        for (int i = rows - 1; i >= 0; --i) {
-            const int j = j0 + i;
-            double acc = Bs[i * nt + tx];
-#pragma unroll
-            for (int t = 1; t <= BW; ++t)
-                if (j + t < d) acc -= w[t - 1] * Ls[i * W + t];
-            const double v = acc * Rs[i];
-#pragma unroll
-            for (int k = BW - 1; k > 0; --k) w[k] = w[k - 1];
-            w[0] = v;
-            X[(size_t)j * r + c] = v;
-        }
-    }
-}
-
-template <int BW>
-__global__ void band_bwd_multi_small(const double* __restrict__ L,
-                                     const double* __restrict__ rinv,
-                                     const double* __restrict__ B,
-                                     double* __restrict__ X, int d, int r) {
-    extern __shared__ double sm[];
-    bwd_small<BW>(L, rinv, B, X, d, r, sm);
-}
-
-// K9 / K10: blockIdx.y is the system, blockIdx.x its tile of right-hand
-// sides; r right-hand sides a system
-template <int BW>
-__global__ void band_fwd_batched_small(const double* __restrict__ L,
-                                       const double* __restrict__ rinv,
-                                       const double* __restrict__ B,
-                                       double* __restrict__ X, int d, int r) {
-    extern __shared__ double sm[];
-    const size_t s = blockIdx.y;
-    const size_t ob = s * d * (BW + 1), od = s * d, ox = s * d * r;
-    fwd_small<BW>(L + ob, rinv + od, B + ox, X + ox, d, r, NO_CAP, sm);
-}
-
-template <int BW>
-__global__ void band_bwd_batched_small(const double* __restrict__ L,
-                                       const double* __restrict__ rinv,
-                                       const double* __restrict__ B,
-                                       double* __restrict__ X, int d, int r) {
-    extern __shared__ double sm[];
-    const size_t s = blockIdx.y;
-    const size_t ob = s * d * (BW + 1), od = s * d, ox = s * d * r;
-    bwd_small<BW>(L + ob, rinv + od, B + ox, X + ox, d, r, sm);
-}
-
-// ---------------------------------------------- K2, K3, K5, generic bw --
-// As above with the window in a shared-memory ring, one strip a thread.
-__device__ __forceinline__ void fwd_columns(const double* __restrict__ L,
-                                            const double* __restrict__ rinv,
-                                            const double* __restrict__ B,
-                                            double* __restrict__ X,
-                                            int d, int bw, int r,
-                                            double cap, double* sm) {
     const int W = bw + 1;
     const int nt = blockDim.x;
     const int tx = threadIdx.x;
@@ -582,7 +492,7 @@ __device__ __forceinline__ void fwd_columns(const double* __restrict__ L,
             for (int t = 1, s = ring_dec(slot, W); t <= nprev;
                  ++t, s = ring_dec(s, W))
                 acc -= win[s * nt + tx] * Ls[i * bw + t - 1];
-            const double v = clip(acc * Rs[i], cap);
+            const double v = clip(acc * Rs[i], Y_CAP);
             win[slot * nt + tx] = v;
             X[(size_t)j * r + c] = v;
             slot = ring_inc(slot, W);
@@ -590,94 +500,12 @@ __device__ __forceinline__ void fwd_columns(const double* __restrict__ L,
     }
 }
 
-__global__ void band_fwd_kernel(const double* __restrict__ L,
-                                const double* __restrict__ rinv,
-                                const double* __restrict__ B,
-                                double* __restrict__ X,
-                                int d, int bw, int r, double cap) {
-    extern __shared__ double sm[];
-    fwd_columns(L, rinv, B, X, d, bw, r, cap, sm);
-}
 
-__device__ __forceinline__ void bwd_columns(const double* __restrict__ L,
-                                            const double* __restrict__ rinv,
-                                            const double* __restrict__ B,
-                                            double* __restrict__ X,
-                                            int d, int bw, int r,
-                                            double* sm) {
-    const int W = bw + 1;
-    const int nt = blockDim.x;
-    const int tx = threadIdx.x;
-    const int c = blockIdx.x * nt + tx;
-    double* Ls = sm;                  // [STAGE][W] rows of L
-    double* Rs = Ls + STAGE * W;      // [STAGE] 1/L_jj
-    double* Bs = Rs + STAGE;          // [STAGE][nt] right-hand sides
-    double* win = Bs + STAGE * nt;    // [W][nt] next W solution rows
-    int slot = 0;                     // ring slot of row j; j+t at slot+t
-    for (int j1 = d; j1 > 0; j1 -= STAGE) {
-        const int j0 = max(0, j1 - STAGE);
-        const int rows = j1 - j0;
-        __syncthreads();
-        for (int i = tx; i < rows * W; i += nt)
-            Ls[i] = L[(size_t)j0 * W + i];
-        for (int i = tx; i < rows; i += nt) Rs[i] = rinv[j0 + i];
-        if (c < r)
-            for (int i = 0; i < rows; ++i)
-                Bs[i * nt + tx] = B[(size_t)(j0 + i) * r + c];
-        __syncthreads();
-        if (c >= r) continue;
-        for (int i = rows - 1; i >= 0; --i) {
-            const int j = j0 + i;
-            double acc = Bs[i * nt + tx];
-            const int nnext = min(d - 1 - j, bw);
-            for (int t = 1, s = ring_inc(slot, W); t <= nnext;
-                 ++t, s = ring_inc(s, W))
-                acc -= win[s * nt + tx] * Ls[i * W + t];
-            const double v = acc * Rs[i];
-            win[slot * nt + tx] = v;
-            X[(size_t)j * r + c] = v;
-            slot = ring_dec(slot, W);
-        }
-    }
-}
-
-__global__ void band_bwd_multi_kernel(const double* __restrict__ L,
-                                      const double* __restrict__ rinv,
-                                      const double* __restrict__ B,
-                                      double* __restrict__ X,
-                                      int d, int bw, int r) {
-    extern __shared__ double sm[];
-    bwd_columns(L, rinv, B, X, d, bw, r, sm);
-}
-
-__global__ void band_fwd_batched_kernel(const double* __restrict__ L,
-                                        const double* __restrict__ rinv,
-                                        const double* __restrict__ B,
-                                        double* __restrict__ X,
-                                        int d, int bw, int r) {
-    extern __shared__ double sm[];
-    const size_t s = blockIdx.y;
-    const size_t ob = s * d * (bw + 1), od = s * d, ox = s * d * r;
-    fwd_columns(L + ob, rinv + od, B + ox, X + ox, d, bw, r, NO_CAP, sm);
-}
-
-__global__ void band_bwd_batched_kernel(const double* __restrict__ L,
-                                        const double* __restrict__ rinv,
-                                        const double* __restrict__ B,
-                                        double* __restrict__ X,
-                                        int d, int bw, int r) {
-    extern __shared__ double sm[];
-    const size_t s = blockIdx.y;
-    const size_t ob = s * d * (bw + 1), od = s * d, ox = s * d * r;
-    bwd_columns(L + ob, rinv + od, B + ox, X + ox, d, bw, r, sm);
-}
-
-
-// ------------------------------ K2, K3, bw > SMALL_BW: warp substitution --
-// One warp (one block) per right-hand-side column runs a right-looking
-// substitution. Walked position p = 0..d-1 is row p of the forward solve
-// (L x = b) and row d-1-p of the backward one (L^T x = b); in walked
-// positions both are one recurrence,
+// ----------------------- K2, K3, K5, K9, K10, bw > SMALL_BW: warp substitution --
+// One warp per right-hand-side column runs a right-looking substitution.
+// Walked position p = 0..d-1 is row p of the forward solve (L x = b) and
+// row d-1-p of the backward one (L^T x = b); in walked positions both
+// are one recurrence,
 //   x_p = acc_p * rinv_p,   acc_{p+o} -= M[p][o] * x_p   (o = 1..bw),
 // with M[p][o] = L[j, o] (forward, j = p) or L[j-o, o] (backward,
 // j = d-1-p). The window [p, p + P) of pending rows, P = 32 NS > bw,
@@ -703,11 +531,23 @@ __global__ void band_bwd_batched_kernel(const double* __restrict__ L,
 // and right-hand-side entries a lane takes in a tile are loaded into
 // registers one tile ahead, and lane u keeps x of the tile's step u for
 // one store at the tile's end: a tile's 32 steps have no branch, so the
-// compiler schedules across them. The only synchronisation is the
-// copy's wait and a __syncwarp a tile.
+// compiler schedules across them.
+//
+// A block holds blockDim.x / 32 warps, one column each (K5's M draws,
+// many right-hand sides): every column reads the same multipliers, so
+// the warps share one ring, which all of the block's threads stage, and
+// a barrier a tile keeps a slot from being restaged while a warp still
+// reads it. blockIdx.y is the system of a batched launch (K9, K10): the
+// arrays are offset to it and the code is the one-system code.
 constexpr int WS_TILE = 32;              // walked positions a staged tile
 constexpr int WS_RING = 4;               // tiles in a ring of tiles
 constexpr int WS_ROWS = 256;             // rows in the backward row ring
+// warps (right-hand sides) a block of the warp kernel holds: one for the
+// few right-hand sides of the Newton and gradient solves, WS_WARPS for
+// many (K5's draws), sharing one ring. A block of WS_WARPS warps keeps
+// the register budget of one warp (255 a thread); at twice as many
+// (2 WS_WARPS, timed only) a thread gets 128 and the kernel spills
+constexpr int WS_WARPS = 8;
 
 __device__ __forceinline__ unsigned smem_addr(const double* p) {
     return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -741,34 +581,35 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Copy n doubles, 16 bytes a lane where both ends are aligned.
+// Copy n doubles, thread tid of nth, 16 bytes a thread where both ends
+// are aligned.
 __device__ __forceinline__ void copy_async(double* dst, const double* src,
-                                           int n, int lane) {
+                                           int n, int tid, int nth) {
     if (((reinterpret_cast<size_t>(src) | smem_addr(dst)) & 15) == 0) {
-        for (int e = 2 * lane; e + 1 < n; e += 64)
+        for (int e = 2 * tid; e + 1 < n; e += 2 * nth)
             cp_async16(dst + e, src + e);
-        if ((n & 1) && lane == 0) cp_async8(dst + n - 1, src + n - 1);
+        if ((n & 1) && tid == 0) cp_async8(dst + n - 1, src + n - 1);
     } else {
-        for (int e = lane; e < n; e += 32) cp_async8(dst + e, src + e);
+        for (int e = tid; e < n; e += nth) cp_async8(dst + e, src + e);
     }
 }
 
 // Start the copies of tile k's multipliers into `tile`, entry u W + o =
 // M[32 k + u][o]. Forward: rows 32 k .. of L, one contiguous block.
-// Backward: lane o - 1 (mod 32) gathers diagonal o, M[u][o] =
+// Backward: thread o - 1 (mod nth) gathers diagonal o, M[u][o] =
 // L[j0 - u - o, o], zeros above row 0.
 template <bool BWD>
 __device__ __forceinline__ void stage_multipliers(
         const double* __restrict__ L, double* tile, int k, int d, int bw,
-        int lane) {
+        int tid, int nth) {
     const int W = bw + 1;
     const int p0 = k * WS_TILE;
     const int rows = min(WS_TILE, d - p0);
     if (!BWD) {
-        copy_async(tile, L + (size_t)p0 * W, rows * W, lane);
+        copy_async(tile, L + (size_t)p0 * W, rows * W, tid, nth);
     } else {
         const int j0 = d - 1 - p0;
-        for (int o = 1 + lane; o <= bw; o += 32)
+        for (int o = 1 + tid; o <= bw; o += nth)
             for (int u = 0; u < rows; ++u) {
                 const int i = j0 - u - o;    // row of L
                 cp_async8_or_zero(tile + u * W + o,
@@ -782,17 +623,17 @@ __device__ __forceinline__ void stage_multipliers(
 // rows holding 32 ascending rows of L: start their copy for tile k.
 __device__ __forceinline__ void stage_rows(const double* __restrict__ L,
                                            double* ring, int k, int d,
-                                           int bw, int lane) {
+                                           int bw, int tid, int nth) {
     const int W = bw + 1;
     const int jb = d - WS_TILE * (k + 1);     // row of position 32 k + 31
     const int r0 = max(jb, 0);
     const int slot = WS_ROWS - WS_TILE * (1 + k % (WS_ROWS / WS_TILE));
     copy_async(ring + (size_t)(slot + r0 - jb) * W, L + (size_t)r0 * W,
-               (jb + WS_TILE - r0) * W, lane);
+               (jb + WS_TILE - r0) * W, tid, nth);
 }
 
-template <int NS, bool BWD>
-__global__ void __launch_bounds__(32)
+template <int NS, bool BWD, int MAXW>
+__global__ void __launch_bounds__(32 * MAXW)
 band_solve_warp(const double* __restrict__ L,
                 const double* __restrict__ rinv,
                 const double* __restrict__ B, double* __restrict__ X,
@@ -807,24 +648,31 @@ band_solve_warp(const double* __restrict__ L,
     constexpr int NEED = ROWS ? 2 : 0;
     constexpr int AHEAD = NT - 1 - NEED / 2;  // tiles staged ahead of k
     const int W = bw + 1;
-    const int lane = threadIdx.x;
-    const int c = blockIdx.x;
+    const int tid = threadIdx.x, nth = blockDim.x;
+    const int lane = tid & 31;
+    const int c = blockIdx.x * (nth >> 5) + (tid >> 5);
+    const bool real = c < r;             // a column past r only stages
+    const size_t sys = blockIdx.y;
+    L += sys * d * W;
+    rinv += sys * d;
+    B += sys * d * r;
+    X += sys * d * r;
     const int ntiles = (d + WS_TILE - 1) / WS_TILE;
     // entry (row, c) of a (d, r) array for walked position p < d
     auto at = [&](int p) {
         return (size_t)(BWD ? d - 1 - p : p) * r + c;
     };
-    auto rhs = [&](int p) { return p < d ? B[at(p)] : 0.0; };
+    auto rhs = [&](int p) { return real && p < d ? B[at(p)] : 0.0; };
     auto rec = [&](int p) {
         return p < d ? rinv[BWD ? d - 1 - p : p] : 0.0;
     };
     auto stage = [&](int k) {
         if (k < ntiles) {
             if (ROWS)
-                stage_rows(L, sm, k, d, bw, lane);
+                stage_rows(L, sm, k, d, bw, tid, nth);
             else
                 stage_multipliers<BWD>(L, sm + (k % NT) * WS_TILE * W, k,
-                                       d, bw, lane);
+                                       d, bw, tid, nth);
         }
         cp_async_commit();
     };
@@ -841,11 +689,11 @@ band_solve_warp(const double* __restrict__ L,
             const int k = k0 + t;
             if (k >= ntiles) break;
             cp_async_wait<AHEAD - 1 - NEED>();   // tiles to k + NEED
-            __syncwarp();                        // landed, for every lane;
-            stage(k + AHEAD);                    // tile k-1-NEED/2's slot
-            const double rc = rq, bc = bq;   // this tile's, then the next's
-            rq = rec((k + 1) * WS_TILE + lane);
-            bq = rhs((k + 1) * WS_TILE + lane + P);
+            __syncthreads();                     // landed, for every
+            stage(k + AHEAD);                    // thread; tile k-1-NEED/2
+            const double rc = rq, bc = bq;       // is free: restage it
+            rq = rec((k + 1) * WS_TILE + lane);  // this tile's, then the
+            bq = rhs((k + 1) * WS_TILE + lane + P);      // next's
             const double* Ms = sm + (k % NT) * WS_TILE * W;
             double xs = 0.0;                 // x of this tile's step lane
 #pragma unroll
@@ -872,24 +720,35 @@ band_solve_warp(const double* __restrict__ L,
                     acc[s] = hit ? a : acc[s];
                 }
             }
-            if (k * WS_TILE + lane < d) X[at(k * WS_TILE + lane)] = xs;
+            if (real && k * WS_TILE + lane < d) X[at(k * WS_TILE + lane)] = xs;
         }
     }
     cp_async_wait<0>();
 }
 
-// -------------------------------------------------------- K3, bw <= 8 --
-// One thread per right-hand-side column with x_{j+1} .. x_{j+BW} in
-// registers, as bwd_small, but a row's products are subtracted
-// farthest-first (x_{j+BW} first, x_{j+1} last): all but the last use
-// values found rows ago, so the chain from x_{j+1} to x_j is one
-// multiply, one subtract and the scale by 1/L_jj, and the other
-// products of the row are made while the row before is solved. Tiles of
-// `ft` rows (L's rows, their 1/L_jj and the block's right-hand sides)
-// are copied by cp.async into one of two buffers while the other is
-// solved: every thread starts the copy of tile k + 1 before tile k is
-// solved, and the one barrier a tile comes after the copy has had a
-// whole tile to land, so the solving thread never waits on memory.
+// ------------------------------------- K2, K3, K5, K9, K10, bw <= 8 --
+// One thread per right-hand-side column with its last BW solution values
+// in registers. A row's products are subtracted farthest-first (x_{j-BW}
+// first, x_{j-1} or x_{j+1} last): all but the last use values found
+// rows ago, so the chain from one row's x to the next's is one multiply,
+// one subtract and the scale by 1/L_jj, and the other products of the
+// row are made while the row before is solved. Tiles of `ft` rows (the
+// multipliers, 1/L_jj and the block's right-hand sides) are copied by
+// cp.async into one of two buffers while the other is solved: every
+// thread starts the copy of tile k + 1 before tile k is solved, and the
+// one barrier a tile comes after the copy has had a whole tile to land,
+// so the solving thread never waits on memory. blockIdx.y is the system
+// of a batched launch (K9, K10), as in band_solve_warp.
+//
+// Backward (L^T x = b, band_bwd_far): tile k holds rows [max(0, d - (k +
+// 1) ft), d - k ft), and row j's multipliers L[j, t] are its own row;
+// entries with j + t >= d are staged as zeros and the rows past d hold x
+// = 0, so acc - 0 * 0 is acc and no row needs a bound check. Forward (L x
+// = b, band_fwd_far): tile k holds rows [k ft, min(d, (k + 1) ft)) and
+// row j's multipliers L[j - t, t] lie on diagonals of L, so the tile's
+// buffer holds its rows of L together with the BW rows before them, and
+// row j reads L[j - t, t] where row j - t sits; rows before 0 are staged
+// as zeros, and x before row 0 is 0.
 template <int BW>
 __global__ void __launch_bounds__(RHS_THREADS)
 band_bwd_far(const double* __restrict__ L, const double* __restrict__ rinv,
@@ -901,9 +760,13 @@ band_bwd_far(const double* __restrict__ L, const double* __restrict__ rinv,
     const int c0 = blockIdx.x * nt;
     const int nc = min(nt, r - c0);      // this block's right-hand sides
     const int c = c0 + tx;
+    const size_t sys = blockIdx.y;
+    L += sys * d * W;
+    rinv += sys * d;
+    B += sys * d * r;
+    X += sys * d * r;
     const int per = ft * (W + 1 + nt);   // doubles in one buffer
     const int ntiles = (d + ft - 1) / ft;
-    // tile k holds rows [max(0, d - (k + 1) ft), d - k ft)
     auto stage = [&](int k) {
         if (k < ntiles) {
             double* Ls = sm + (k & 1) * per;
@@ -947,8 +810,6 @@ band_bwd_far(const double* __restrict__ L, const double* __restrict__ rinv,
         const double* Rs = Ls + ft * W;
         const double* Bs = Rs + ft;
         const int j1 = d - k * ft, j0 = max(0, j1 - ft);
-        // rows past d hold x = 0 and their entries of L were staged as
-        // zeros: acc - 0 * 0 is acc, so no row needs a bound check
 #pragma unroll 4
         for (int i = j1 - j0 - 1; i >= 0; --i) {
             const int j = j0 + i;
@@ -961,6 +822,83 @@ band_bwd_far(const double* __restrict__ L, const double* __restrict__ rinv,
             for (int t = BW - 1; t > 0; --t) w[t] = w[t - 1];
             w[0] = v;
             X[(size_t)j * r + c] = v;
+        }
+    }
+    cp_async_wait<0>();
+}
+
+template <int BW>
+__global__ void __launch_bounds__(RHS_THREADS)
+band_fwd_far(const double* __restrict__ L, const double* __restrict__ rinv,
+             const double* __restrict__ B, double* __restrict__ X, int d,
+             int r, int ft) {
+    constexpr int W = BW + 1;
+    extern __shared__ double sm[];
+    const int nt = blockDim.x, tx = threadIdx.x;
+    const int c0 = blockIdx.x * nt;
+    const int nc = min(nt, r - c0);      // this block's right-hand sides
+    const int c = c0 + tx;
+    const size_t sys = blockIdx.y;
+    L += sys * d * W;
+    rinv += sys * d;
+    B += sys * d * r;
+    X += sys * d * r;
+    const int per = (ft + BW) * W + ft * (1 + nt);   // doubles a buffer
+    const int ntiles = (d + ft - 1) / ft;
+    auto stage = [&](int k) {
+        if (k < ntiles) {
+            double* Ls = sm + (k & 1) * per;     // rows j0 - BW .. j1 - 1
+            double* Rs = Ls + (ft + BW) * W;
+            double* Bs = Rs + ft;
+            const int j0 = k * ft, j1 = min(d, j0 + ft);
+            const int rows = j1 - j0;
+            const int lo = j0 - BW;              // first staged row of L
+            for (int i = tx; i < (rows + BW) * W; i += nt) {
+                const bool keep = lo + i / W >= 0;
+                cp_async8_or_zero(Ls + i,
+                                  L + (keep ? (long)lo * W + i : 0L),
+                                  keep);
+            }
+            for (int i = tx; i < rows; i += nt)
+                cp_async8(Rs + i, rinv + j0 + i);
+            if (nc == nt) {
+                for (int i = 0; i < rows; ++i)
+                    cp_async8(Bs + i * nt + tx, B + (size_t)(j0 + i) * r + c);
+            } else {
+                for (int e = tx; e < rows * nc; e += nt) {
+                    const int i = e / nc, cc = e - i * nc;
+                    cp_async8(Bs + i * nt + cc,
+                              B + (size_t)(j0 + i) * r + c0 + cc);
+                }
+            }
+        }
+        cp_async_commit();
+    };
+    double w[BW];                        // X[j-1 .. j-BW]
+#pragma unroll
+    for (int k = 0; k < BW; ++k) w[k] = 0.0;
+    stage(0);
+    for (int k = 0; k < ntiles; ++k) {
+        cp_async_wait<0>();              // tile k, this thread's copies
+        __syncthreads();                 // every thread's; tile k - 1 done
+        stage(k + 1);                    // into tile k - 1's buffer
+        if (tx >= nc) continue;
+        const double* Ls = sm + (k & 1) * per;
+        const double* Rs = Ls + (ft + BW) * W;
+        const double* Bs = Rs + ft;
+        const int j0 = k * ft, rows = min(d, j0 + ft) - j0;
+#pragma unroll 4
+        for (int i = 0; i < rows; ++i) {
+            double acc = Bs[i * nt + tx];
+            // L[j - t, t] sits in staged row i + BW - t
+#pragma unroll
+            for (int t = BW; t >= 1; --t)
+                acc -= Ls[(i + BW - t) * W + t] * w[t - 1];
+            const double v = acc * Rs[i];
+#pragma unroll
+            for (int t = BW - 1; t > 0; --t) w[t] = w[t - 1];
+            w[0] = v;
+            X[(size_t)(j0 + i) * r + c] = v;
         }
     }
     cp_async_wait<0>();
@@ -1043,9 +981,9 @@ __global__ void band_takahashi_batched_kernel(const double* __restrict__ L,
     takahashi_rows(L + ob, rinv + r * d, Z + ob, d, bw, sm);
 }
 
-// shared memory of the right-hand-side kernels with nt threads a block:
+// shared memory of K1's tail-solve kernels with nt threads a block:
 // staged multipliers (STAGE x lw), 1/L_jj, right-hand sides, and the
-// generic kernels' ring
+// generic kernel's ring
 size_t rhs_smem(int lw, int ring_w, int nt = RHS_THREADS) {
     return sizeof(double) * ((size_t)STAGE * lw + STAGE
                              + (size_t)STAGE * nt + (size_t)ring_w * nt);
@@ -1088,162 +1026,135 @@ cudaError_t launch_factor_batched_small(const double* bands, double* L,
     return cudaGetLastError();
 }
 
-// threads of a K3, K9 or K10 block: one a right-hand side, whole warps
-int batched_rhs_threads(int r) {
+// threads of a register-window solve block: one a right-hand side, whole
+// warps
+int rhs_threads(int r) {
     return r < RHS_THREADS ? round_threads(r) : RHS_THREADS;
 }
 
+int warp_block(int r) { return r <= 4 ? 1 : WS_WARPS; }
+
 template <int BW>
-cudaError_t launch_rhs_small(int kind, const double* L, const double* rinv,
-                             const double* B, double* X, int d, int r,
-                             double cap, cudaStream_t st) {
+cudaError_t launch_tail_small(const double* L, const double* rinv,
+                              const double* C, double* Y, int d, int r,
+                              cudaStream_t st) {
     const int grid = (r + RHS_THREADS - 1) / RHS_THREADS;
-    if (kind == 0) {
-        band_fwd_small<BW><<<grid, RHS_THREADS, rhs_smem(BW, 0), st>>>(
-            L, rinv, B, X, d, r, cap);
-    } else if (kind == 1) {
-        // K3: two tiles of ft rows, ft * nt = 4096 (ft <= 128)
-        const int nt = batched_rhs_threads(r);
-        const int ft = min(128, 4096 / nt);
-        const size_t smem = 2 * sizeof(double) * ft * (BW + 2 + nt);
-        const cudaError_t e = allow_smem(band_bwd_far<BW>, smem);
-        if (e != cudaSuccess) return e;
-        band_bwd_far<BW><<<(r + nt - 1) / nt, nt, smem, st>>>(
-            L, rinv, B, X, d, r, ft);
-    } else {
-        band_bwd_multi_small<BW>
-            <<<grid, RHS_THREADS, rhs_smem(BW + 1, 0), st>>>(
-                L, rinv, B, X, d, r);
-    }
+    band_tail_small<BW><<<grid, RHS_THREADS, rhs_smem(BW, 0), st>>>(
+        L, rinv, C, Y, d, r);
     return cudaGetLastError();
 }
 
+// bw <= SMALL_BW: two tiles of ft rows, ft * nt = 4096 (ft <= 128)
 template <int BW>
-cudaError_t launch_rhs_batched_small(int kind, const double* L,
-                                     const double* rinv, const double* B,
-                                     double* X, int nsys, int d, int r,
-                                     cudaStream_t st) {
-    const int nt = batched_rhs_threads(r);
+cudaError_t launch_far(bool bwd, const double* L, const double* rinv,
+                       const double* B, double* X, int nsys, int d, int r,
+                       cudaStream_t st) {
+    const int nt = rhs_threads(r);
+    const int ft = min(128, 4096 / nt);
     const dim3 grid((r + nt - 1) / nt, nsys);
-    if (kind == 0) {
-        band_fwd_batched_small<BW><<<grid, nt, rhs_smem(BW, 0, nt), st>>>(
-            L, rinv, B, X, d, r);
+    cudaError_t e;
+    if (bwd) {
+        const size_t smem = 2 * sizeof(double) * ft * (BW + 2 + nt);
+        e = allow_smem(band_bwd_far<BW>, smem);
+        if (e != cudaSuccess) return e;
+        band_bwd_far<BW><<<grid, nt, smem, st>>>(L, rinv, B, X, d, r, ft);
     } else {
-        band_bwd_batched_small<BW>
-            <<<grid, nt, rhs_smem(BW + 1, 0, nt), st>>>(L, rinv, B, X, d, r);
+        const size_t smem = 2 * sizeof(double) *
+            ((size_t)(ft + BW) * (BW + 1) + (size_t)ft * (1 + nt));
+        e = allow_smem(band_fwd_far<BW>, smem);
+        if (e != cudaSuccess) return e;
+        band_fwd_far<BW><<<grid, nt, smem, st>>>(L, rinv, B, X, d, r, ft);
     }
     return cudaGetLastError();
 }
 
-using RhsLaunch = cudaError_t (*)(int, const double*, const double*,
-                                  const double*, double*, int, int, double,
+using TailLaunch = cudaError_t (*)(const double*, const double*,
+                                   const double*, double*, int, int,
+                                   cudaStream_t);
+using FarLaunch = cudaError_t (*)(bool, const double*, const double*,
+                                  const double*, double*, int, int, int,
                                   cudaStream_t);
 using FactorLaunch = cudaError_t (*)(const double*, const double*, double*,
                                      double*, double*, double*, double*,
                                      int*, int, int, cudaStream_t);
-using RhsBatchedLaunch = cudaError_t (*)(int, const double*, const double*,
-                                         const double*, double*, int, int,
-                                         int, cudaStream_t);
 using FactorBatchedLaunch = cudaError_t (*)(const double*, double*, double*,
                                             double*, double*, int*, int, int,
                                             cudaStream_t);
 // the register-window instantiations, indexed by bandwidth
-const RhsLaunch kRhsSmall[SMALL_BW + 1] = {
-    nullptr, launch_rhs_small<1>, launch_rhs_small<2>, launch_rhs_small<3>,
-    launch_rhs_small<4>, launch_rhs_small<5>, launch_rhs_small<6>,
-    launch_rhs_small<7>, launch_rhs_small<8>};
+const TailLaunch kTailSmall[SMALL_BW + 1] = {
+    nullptr, launch_tail_small<1>, launch_tail_small<2>,
+    launch_tail_small<3>, launch_tail_small<4>, launch_tail_small<5>,
+    launch_tail_small<6>, launch_tail_small<7>, launch_tail_small<8>};
+const FarLaunch kFar[SMALL_BW + 1] = {
+    nullptr, launch_far<1>, launch_far<2>, launch_far<3>, launch_far<4>,
+    launch_far<5>, launch_far<6>, launch_far<7>, launch_far<8>};
 const FactorLaunch kFactorSmall[SMALL_BW + 1] = {
     nullptr, launch_factor_small<1>, launch_factor_small<2>,
     launch_factor_small<3>, launch_factor_small<4>, launch_factor_small<5>,
     launch_factor_small<6>, launch_factor_small<7>, launch_factor_small<8>};
-
-const RhsBatchedLaunch kRhsBatchedSmall[SMALL_BW + 1] = {
-    nullptr, launch_rhs_batched_small<1>, launch_rhs_batched_small<2>,
-    launch_rhs_batched_small<3>, launch_rhs_batched_small<4>,
-    launch_rhs_batched_small<5>, launch_rhs_batched_small<6>,
-    launch_rhs_batched_small<7>, launch_rhs_batched_small<8>};
 const FactorBatchedLaunch kFactorBatchedSmall[SMALL_BW + 1] = {
     nullptr, launch_factor_batched_small<1>, launch_factor_batched_small<2>,
     launch_factor_batched_small<3>, launch_factor_batched_small<4>,
     launch_factor_batched_small<5>, launch_factor_batched_small<6>,
     launch_factor_batched_small<7>, launch_factor_batched_small<8>};
 
-// kind 0 forward (K2), 1 backward (K3), 2 backward for the draws (K5).
-// Past SMALL_BW, K2 and K3 run on the warp kernels (launch_solve); here
-// only K1's tail solve (kind 0 with its cap) and K5 take the generic code.
-cudaError_t launch_rhs(int kind, const double* L, const double* rinv,
-                       const double* B, double* X, int d, int bw, int r,
-                       cudaStream_t st, double cap = NO_CAP) {
+// K1's tail solve: Y = L^{-1} C with K1's order and cap
+cudaError_t launch_tail(const double* L, const double* rinv, const double* C,
+                        double* Y, int d, int bw, int r, cudaStream_t st) {
     if (bw >= 1 && bw <= SMALL_BW)
-        return kRhsSmall[bw](kind, L, rinv, B, X, d, r, cap, st);
-    if (kind == 1) return cudaErrorInvalidValue;
+        return kTailSmall[bw](L, rinv, C, Y, d, r, st);
     const int grid = (r + RHS_THREADS - 1) / RHS_THREADS;
-    const size_t smem = rhs_smem(kind == 0 ? bw : bw + 1, bw + 1);
-    cudaError_t e;
-    if (kind == 0) {
-        e = allow_smem(band_fwd_kernel, smem);
-        if (e != cudaSuccess) return e;
-        band_fwd_kernel<<<grid, RHS_THREADS, smem, st>>>(L, rinv, B, X, d,
-                                                         bw, r, cap);
-    } else {
-        e = allow_smem(band_bwd_multi_kernel, smem);
-        if (e != cudaSuccess) return e;
-        band_bwd_multi_kernel<<<grid, RHS_THREADS, smem, st>>>(
-            L, rinv, B, X, d, bw, r);
-    }
+    const size_t smem = rhs_smem(bw, bw + 1);
+    const cudaError_t e = allow_smem(band_tail_kernel, smem);
+    if (e != cudaSuccess) return e;
+    band_tail_kernel<<<grid, RHS_THREADS, smem, st>>>(L, rinv, C, Y, d, bw,
+                                                      r);
     return cudaGetLastError();
 }
 
-cudaError_t launch_rhs_batched(int kind, const double* L, const double* rinv,
-                               const double* B, double* X, int nsys, int d,
-                               int bw, int r, cudaStream_t st) {
-    if (bw >= 1 && bw <= SMALL_BW)
-        return kRhsBatchedSmall[bw](kind, L, rinv, B, X, nsys, d, r, st);
-    const int nt = batched_rhs_threads(r);
-    const dim3 grid((r + nt - 1) / nt, nsys);
-    const size_t smem = rhs_smem(kind == 0 ? bw : bw + 1, bw + 1, nt);
-    cudaError_t e;
-    if (kind == 0) {
-        e = allow_smem(band_fwd_batched_kernel, smem);
-        if (e != cudaSuccess) return e;
-        band_fwd_batched_kernel<<<grid, nt, smem, st>>>(L, rinv, B, X, d, bw,
-                                                        r);
-    } else {
-        e = allow_smem(band_bwd_batched_kernel, smem);
-        if (e != cudaSuccess) return e;
-        band_bwd_batched_kernel<<<grid, nt, smem, st>>>(L, rinv, B, X, d, bw,
-                                                        r);
-    }
-    return cudaGetLastError();
-}
-
-
-// K2 (forward) or K3 (backward) for bw > SMALL_BW on the warp kernels
-template <int NS, bool BWD>
+template <int NS, bool BWD, int MAXW>
 cudaError_t launch_solve_warp(const double* L, const double* rinv,
-                              const double* B, double* X, int d, int bw,
-                              int r, cudaStream_t st) {
+                              const double* B, double* X, int nsys, int d,
+                              int bw, int r, int warps, cudaStream_t st) {
     const size_t rows = BWD && NS <= 2 ? WS_ROWS : WS_RING * WS_TILE;
     const size_t smem = sizeof(double) * rows * (size_t)(bw + 1);
-    cudaError_t e = allow_smem(band_solve_warp<NS, BWD>, smem);
+    cudaError_t e = allow_smem(band_solve_warp<NS, BWD, MAXW>, smem);
     if (e != cudaSuccess) return e;
-    band_solve_warp<NS, BWD><<<r, 32, smem, st>>>(L, rinv, B, X, d, bw, r);
+    const dim3 grid((r + warps - 1) / warps, nsys);
+    band_solve_warp<NS, BWD, MAXW><<<grid, 32 * warps, smem, st>>>(
+        L, rinv, B, X, d, bw, r);
     return cudaGetLastError();
 }
 
+// the warp kernel for bw: one, two or four register slots a lane
+template <bool BWD, int MAXW>
+cudaError_t launch_warp(const double* L, const double* rinv, const double* B,
+                        double* X, int nsys, int d, int bw, int r, int warps,
+                        cudaStream_t st) {
+    if (warps < 1 || warps > MAXW) return cudaErrorInvalidValue;
+    if (bw < 32)
+        return launch_solve_warp<1, BWD, MAXW>(L, rinv, B, X, nsys, d, bw,
+                                               r, warps, st);
+    if (bw < 64)
+        return launch_solve_warp<2, BWD, MAXW>(L, rinv, B, X, nsys, d, bw,
+                                               r, warps, st);
+    if (bw < 128)
+        return launch_solve_warp<4, BWD, MAXW>(L, rinv, B, X, nsys, d, bw,
+                                               r, warps, st);
+    return cudaErrorInvalidValue;
+}
+
+// Every solve but K1's tail, in one order (farthest-first): forward (K2,
+// K9) or backward (K3, K5, K10), nsys systems of r right-hand sides,
+// warp_block(r) of them a block of the warp kernel (bw > SMALL_BW)
 template <bool BWD>
 cudaError_t launch_solve(const double* L, const double* rinv,
-                         const double* B, double* X, int d, int bw, int r,
-                         cudaStream_t st) {
-    if (bw <= SMALL_BW)
-        return launch_rhs(BWD ? 1 : 0, L, rinv, B, X, d, bw, r, st);
-    if (bw < 32)
-        return launch_solve_warp<1, BWD>(L, rinv, B, X, d, bw, r, st);
-    if (bw < 64)
-        return launch_solve_warp<2, BWD>(L, rinv, B, X, d, bw, r, st);
-    if (bw < 128)
-        return launch_solve_warp<4, BWD>(L, rinv, B, X, d, bw, r, st);
-    return cudaErrorInvalidValue;
+                         const double* B, double* X, int nsys, int d,
+                         int bw, int r, cudaStream_t st) {
+    if (bw >= 1 && bw <= SMALL_BW)
+        return kFar[bw](BWD, L, rinv, B, X, nsys, d, r, st);
+    return launch_warp<BWD, WS_WARPS>(L, rinv, B, X, nsys, d, bw, r,
+                                      warp_block(r), st);
 }
 
 }  // namespace
@@ -1281,29 +1192,44 @@ int bgt_band_factor(const double* band, const double* C, double* L,
     return (int)cudaGetLastError();
 }
 
-// Y = L^{-1} C for the tail columns beyond K1's tile: K2 with K1's cap
-// |Y| <= 1e8, so each column equals what K1 would have computed
+// Y = L^{-1} C for the tail columns beyond K1's tile, each column as K1
+// computes it (its order, |Y| <= 1e8)
 int bgt_band_tail_solve(const double* L, const double* rinv, const double* C,
                         double* Y, int d, int bw, int r, void* stream) {
-    return (int)launch_rhs(0, L, rinv, C, Y, d, bw, r, (cudaStream_t)stream,
-                           Y_CAP);
+    return (int)launch_tail(L, rinv, C, Y, d, bw, r, (cudaStream_t)stream);
 }
 
 int bgt_band_fwd_solve(const double* L, const double* rinv, const double* B,
                        double* X, int d, int bw, int r, void* stream) {
-    return (int)launch_solve<false>(L, rinv, B, X, d, bw, r,
+    return (int)launch_solve<false>(L, rinv, B, X, 1, d, bw, r,
                                     (cudaStream_t)stream);
 }
 
 int bgt_band_bwd_solve(const double* L, const double* rinv, const double* B,
                        double* X, int d, int bw, int r, void* stream) {
-    return (int)launch_solve<true>(L, rinv, B, X, d, bw, r,
+    return (int)launch_solve<true>(L, rinv, B, X, 1, d, bw, r,
                                    (cudaStream_t)stream);
 }
 
+// K5: K3's function and kernels on the M columns of the draws
 int bgt_band_bwd_multi(const double* L, const double* rinv, const double* B,
                        double* X, int d, int bw, int r, void* stream) {
-    return (int)launch_rhs(2, L, rinv, B, X, d, bw, r, (cudaStream_t)stream);
+    return (int)launch_solve<true>(L, rinv, B, X, 1, d, bw, r,
+                                   (cudaStream_t)stream);
+}
+
+// K5 for bw > SMALL_BW with `warps` draw columns a block of the warp
+// kernel (1 .. 2 WS_WARPS), for timing the block shapes side by side
+int bgt_band_bwd_multi_warps(const double* L, const double* rinv,
+                             const double* B, double* X, int d, int bw,
+                             int r, int warps, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (bw <= SMALL_BW) return (int)cudaErrorInvalidValue;
+    if (warps <= WS_WARPS)
+        return (int)launch_warp<true, WS_WARPS>(L, rinv, B, X, 1, d, bw, r,
+                                                warps, st);
+    return (int)launch_warp<true, 2 * WS_WARPS>(L, rinv, B, X, 1, d, bw, r,
+                                                warps, st);
 }
 
 int bgt_band_takahashi(const double* L, const double* rinv, double* Z,
@@ -1337,14 +1263,14 @@ int bgt_band_factor_batched(const double* bands, double* L, double* rinv,
 int bgt_band_fwd_solve_batched(const double* L, const double* rinv,
                                const double* B, double* X, int nsys, int d,
                                int bw, int r, void* stream) {
-    return (int)launch_rhs_batched(0, L, rinv, B, X, nsys, d, bw, r,
-                                   (cudaStream_t)stream);
+    return (int)launch_solve<false>(L, rinv, B, X, nsys, d, bw, r,
+                                    (cudaStream_t)stream);
 }
 
 int bgt_band_bwd_solve_batched(const double* L, const double* rinv,
                                const double* B, double* X, int nsys, int d,
                                int bw, int r, void* stream) {
-    return (int)launch_rhs_batched(1, L, rinv, B, X, nsys, d, bw, r,
+    return (int)launch_solve<true>(L, rinv, B, X, nsys, d, bw, r,
                                    (cudaStream_t)stream);
 }
 

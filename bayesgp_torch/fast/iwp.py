@@ -123,6 +123,9 @@ class FastIWPBackend(HostNodes):
     engine: Any
     row_order: np.ndarray   # (n,) build-time row sort (raw -> internal)
 
+    # the driver's theta index (a multi-term backend's field)
+    drv_theta = 0
+
     def __post_init__(self):
         dev = self.valsT.device
         ar = torch.arange(self.p + 1, device=dev)[:, None]
@@ -141,6 +144,7 @@ class FastIWPBackend(HostNodes):
         # T's nonzero off-diagonals (all p of one IWP term)
         self._t_offsets = [o for o in range(1, self.Tdiags.shape[0])
                            if bool(self.Tdiags[o].any())]
+        self._sqrt_w = torch.sqrt(self.prior_w)
         self._logPdet0 = float(np.asarray(self.md.logPdet)[0])
         self._phi = (-torch.log(torch.as_tensor(self.md.alpha, dtype=DTYPE))
                      / torch.as_tensor(self.md.u, dtype=DTYPE)).to(dev)
@@ -232,7 +236,46 @@ class FastIWPBackend(HostNodes):
         of the Hessian -> (q, q)."""
         return ((self.XFpT * wts) @ self.XFpT.T
                 + torch.exp(theta[0]) * self.Z0PZ0
-                + torch.diag(self.prior_diag_tail))
+                + self._tail_prior_mat(theta))
+
+    def _tail_prior_mat(self, theta):
+        """The tail's own prior precision, (q, q)."""
+        return torch.diag(self.prior_diag_tail)
+
+    def _band_extra_diag(self, theta):
+        """Diagonal prior terms inside the band besides the driver's (a
+        merged band's levels and padded slots): none here."""
+        return None
+
+    # -- the Schur tail as a Gram ------------------------------------------
+    # The tail's Schur complement S = Hd - C^T Hb^{-1} C is, column by
+    # column, the least-squares residual of the tail's design against the
+    # band's: with R = sqrt(wts) B, F the prior's factor (F^T F = e^theta
+    # P_V + the diagonal terms) and W' = Hb^{-1} C,
+    #     S = E1^T E1 + E2^T E2 + P_t,
+    #     E1 = sqrt(wts) (XFp - B W'),   E2 = F (Z0 + W').
+    # Taken as the difference Hd - Y^T Y it cancels where the prior pins
+    # the driver (e^theta Z0' P Z0 in Hd against the same in Y^T Y): at
+    # the merged-IID headline's mode that left S noise. The Gram is a sum
+    # of squares, and an error in W' moves it only to second order (S is
+    # the minimum over W'), so its derivative is taken with W' fixed.
+    def _tail_schur(self, L, rinv, Y, sc, sd, wts, theta):
+        """(q, q) Schur tail of the equilibrated arrowhead, sd S sd, as
+        the Gram above; L, rinv, Y: the band factor of the equilibrated
+        band and Y = L^{-1} C_s. Differentiable in wts and theta."""
+        with torch.no_grad():
+            Wt = (self.engine.ops.bwd_solve(L, rinv, Y.contiguous())
+                  * sc[:, None] / sd[None, :]).T          # (q, dpad): W'^T
+        BW = (self.valsT * Wt[:, self._cols]).sum(1)    # (q, n): (B W')^T
+        E1 = torch.sqrt(wts) * (self.XFpT - BW)
+        Wc = self.Z0.T + Wt[:, :self.d]                 # (q, d): Z0 + W'
+        E2 = (self.apply_T(Wc) * self._sqrt_w
+              * torch.exp(0.5 * theta[self.drv_theta]))
+        S = E1 @ E1.T + E2 @ E2.T + self._tail_prior_mat(theta)
+        extra = self._band_extra_diag(theta)
+        if extra is not None:
+            S = S + (Wc * extra) @ Wc.T
+        return S * sd[:, None] * sd[None, :]
 
     # -- prior ------------------------------------------------------------
     # The driver's prior quadratic r^T P_V r, r = V' - Z0 t, is taken as
@@ -310,7 +353,8 @@ class FastIWPBackend(HostNodes):
     # -- Hessian --------------------------------------------------------
     def _assemble_scaled(self, V, tail, theta, eta=None):
         """Jacobi-equilibrated arrowhead at (V, tail): (band_s, C_s, Hd_s,
-        sc, sd) with H~ = S H S, S = diag(sc, sd)."""
+        sc, sd, wts) with H~ = S H S, S = diag(sc, sd), and wts the
+        likelihood weights."""
         e = self.eta(V, tail) if eta is None else eta
         wts = families.eta_weights(e, self.md, theta)
         band = self.band_H(wts, theta)
@@ -329,13 +373,21 @@ class FastIWPBackend(HostNodes):
                               for o in range(self.p + 1)], dim=1)
         band_s = band * sc[:, None] * sc_off
         C_s = C * sc[:, None] * sd[None, :] if self.q else C
-        return band_s, C_s, Hd, sc, sd
+        return band_s, C_s, Hd, sc, sd, wts
+
+    def _factor_scaled(self, band_s, C_s, Hd, sc, sd, wts, theta):
+        """Engine factor of the equilibrated Hessian, its Schur tail
+        formed by _tail_schur."""
+        def schur(L, rinv, Y):
+            return self._tail_schur(L, rinv, Y, sc, sd, wts, theta)
+        return self.engine.factor(band_s, C_s, Hd, schur=schur)
 
     def hessian_factor(self, V, tail, theta, eta=None):
         """(engine factor, sc, sd) of the equilibrated Hessian."""
-        band_s, C_s, Hd, sc, sd = self._assemble_scaled(V, tail, theta,
-                                                        eta=eta)
-        return self.engine.factor(band_s, C_s, Hd), sc, sd
+        band_s, C_s, Hd, sc, sd, wts = self._assemble_scaled(V, tail, theta,
+                                                             eta=eta)
+        return (self._factor_scaled(band_s, C_s, Hd, sc, sd, wts, theta),
+                sc, sd)
 
     def solve_H(self, factor, gV, gt):
         """H [zV; zt] = [gV; gt] through the equilibrated factor."""
@@ -457,13 +509,18 @@ class FastIWPBackend(HostNodes):
         recurrence). `factor`: a hessian_factor at the same point, whose
         factorization the primal then reuses."""
         e0 = self.eta(V, tail)
-        band_s, C_s, Hd, sc, sd = self._assemble_scaled(V, tail, theta,
-                                                        eta=e0)
+        band_s, C_s, Hd, sc, sd, wts = self._assemble_scaled(V, tail, theta,
+                                                             eta=e0)
+        # the tail's scale cancels from 0.5 log|sd S sd| - sum log sd
+        sd = sd.detach()
         if factor is None:
-            hld = self.engine.arrow_half_logdet(band_s, C_s, Hd)
+            af = self._factor_scaled(band_s, C_s, Hd, sc.detach(), sd,
+                                     wts.detach(), theta.detach())
         else:
-            hld = self.engine.arrow_half_logdet_given(band_s, C_s, Hd,
-                                                      factor[0])
+            af = factor[0]
+        S_s = (self._tail_schur(af.L, af.rinv, af.Y, sc.detach(), sd, wts,
+                                theta) if self.q else Hd)
+        hld = self.engine.schur_half_logdet(band_s, S_s, af)
         half_logdet = hld - torch.log(sc).sum() - torch.log(sd).sum()
         f = (-families.log_lik(e0, self.md, theta)
              + self._prior_neg(V, tail, theta))

@@ -18,6 +18,12 @@ plus the Schur-tail corrections, d(0.5 log|H|)/dH = 0.5 H^{-1} on the
 entries that parameterize H -- the backward never differentiates
 through the factorization recurrence.
 
+A backend that can form the Schur tail S without the difference Hd -
+Y^T Y (fast/iwp.py forms it as a Gram of least-squares residuals, which
+no cancellation enters) passes it to `factor` as `schur` and takes the
+half log-det from `schur_half_logdet`: 0.5 log|H| = 0.5 log|Hb| + 0.5
+log|S|, with the band's cotangent 0.5 Takahashi(Hb) and S's 0.5 S^{-1}.
+
 The backward's sick-factor gate drops those cotangents only where the
 factor is sick: K1 clamped a band pivot, the tail factor left its plain
 route (chol_jittered added jitter or took its diagonal surrogate, or K6
@@ -120,13 +126,18 @@ class BandArrowEngine:
             return chol_dense.solve_lower_t_blocked(Ls, b)
         return _solve_Lt(Ls, b)
 
-    def factor(self, band, C, Hd):
+    def factor(self, band, C, Hd, schur=None):
+        """BandFactor of the arrowhead (band, C, Hd). The Schur tail is Hd
+        - Y^T Y, or schur(L, rinv, Y) where the caller forms it itself
+        (Hd is then not read)."""
         with torch.no_grad():
             band = band.detach().contiguous()
             C = C.detach().contiguous()
             L, rinv, Y, hld_b, clamped = self.ops.factor(band, C)
             if self.q:
-                Ls, left = self._tail_chol(Hd.detach() - Y.T @ Y)
+                S = (Hd.detach() - Y.T @ Y if schur is None
+                     else schur(L, rinv, Y).detach())
+                Ls, left = self._tail_chol(S)
             else:
                 Ls, left = Hd.detach(), torch.zeros_like(clamped)
         return BandFactor(L, rinv, Y, Ls, hld_b, clamped, left)
@@ -177,47 +188,77 @@ class BandArrowEngine:
         if not q:
             return hinv_band, None, None
         Wm = self.solve_Lt(f, f.Y)                             # (d, q)
-        Sinv = self._tail_solve_Lt(f.Ls, self._tail_solve_L(
-            f.Ls, torch.eye(q, dtype=dt, device=dev)))
+        Sinv = self._tail_inverse(f)
         A = Wm @ Sinv                                          # (d, q)
         corr = torch.zeros((d, bw + 1), dtype=dt, device=dev)
         for o in range(bw + 1):
             corr[:d - o, o] = (A[o:] * Wm[:d - o]).sum(1)
         return hinv_band + corr, A, Sinv
 
-    def gate_reasons(self, f: BandFactor):
-        """Why the half-log-det backward would drop its cotangents for f,
-        as 0-d bool tensors: (K1 clamped a band pivot, the tail factor
-        left its plain route, an entry of H^{-1} the backward reads is
-        not finite). The gate is closed where any of them holds."""
-        return f.clamped, f.tail_left, ~_finite(*self._hinv_parts(f))
+    def _tail_inverse(self, f: BandFactor):
+        """S^{-1} from the tail factor; None when q = 0."""
+        if not self.q:
+            return None
+        eye = torch.eye(self.q, dtype=f.L.dtype, device=f.L.device)
+        return self._tail_solve_Lt(f.Ls, self._tail_solve_L(f.Ls, eye))
 
-    def hld_backward(self, f: BandFactor, ct):
-        """Cotangents of the half log-det for (band, C, Hd): ct times
-        0.5 H^{-1} on the band's diagonal, H^{-1} off it, -A for C and
-        0.5 S^{-1} for Hd (_hinv_parts); all zero on a sick factor."""
-        d, bw, q = self.d, self.bw, self.q
+    def gate_reasons(self, f: BandFactor):
+        """Why schur_half_logdet's backward would drop its cotangents for
+        f, as 0-d bool tensors: (K1 clamped a band pivot, the tail factor
+        left its plain route, an entry of Takahashi(Hb) or S^{-1} is not
+        finite). The gate is closed where any of them holds."""
+        return (f.clamped, f.tail_left,
+                ~_finite(self.ops.takahashi(f.L, f.rinv),
+                         self._tail_inverse(f)))
+
+    def _gated(self, f: BandFactor, ct, hinv_band, tail):
+        """(ct times 0.5 hinv_band on the band's diagonal and hinv_band
+        off it, then the `tail` cotangents as given), all zero on a sick
+        factor: K1 clamped a pivot, the tail factor left its plain route,
+        or an entry of hinv_band or `tail` is not finite. The sick-factor
+        gate: the identity on a healthy factor; on a sick one the
+        selected inverse is that of another matrix, and the value's
+        explicit gradient remains."""
         dt, dev = f.L.dtype, f.L.device
-        hinv_band, A, Sinv = self._hinv_parts(f)
-        if q:
-            ct_C = (-ct) * A
-            ct_Hd = (0.5 * ct) * Sinv
-        else:
-            ct_C = torch.zeros((d, 0), dtype=dt, device=dev)
-            ct_Hd = torch.zeros((0, 0), dtype=dt, device=dev)
-        w = torch.ones((1, bw + 1), dtype=dt, device=dev)
+        w = torch.ones((1, self.bw + 1), dtype=dt, device=dev)
         w[0, 0] = 0.5
-        # sick-factor gate: the identity on a healthy factor; where K1
-        # clamped a pivot or the tail left its plain route the selected
-        # inverse is that of another matrix, and its cotangents are
-        # dropped (the value's explicit gradient remains)
         okf = (~(f.clamped | f.tail_left)
-               & _finite(hinv_band, A, Sinv)).to(dt)
+               & _finite(hinv_band, *tail)).to(dt)
 
         def san(x):
             return okf * torch.where(torch.isfinite(x), x,
                                      torch.zeros_like(x))
-        return san(ct * w * hinv_band), san(ct_C), san(ct_Hd)
+        return (san(ct * w * hinv_band),) + tuple(san(x) for x in tail)
+
+    def schur_backward(self, f: BandFactor, ct):
+        """Cotangents of schur_half_logdet for (band, S): ct times 0.5
+        Takahashi(Hb) on the band's diagonal and Takahashi(Hb) off it, and
+        0.5 ct S^{-1} (_gated)."""
+        hinv_band = self.ops.takahashi(f.L, f.rinv)
+        if not self.q:
+            return (self._gated(f, ct, hinv_band, ())[0],
+                    hinv_band.new_zeros((0, 0)))
+        return self._gated(f, ct, hinv_band,
+                           ((0.5 * ct) * self._tail_inverse(f),))
+
+    def schur_half_logdet(self, band, S, f: BandFactor):
+        """Differentiable half log-det of the arrowhead from its band and
+        its Schur tail S, given their factor f (factor(..., schur=...)):
+        0.5 log|Hb| + 0.5 log|S|. Where S is a differentiable function of
+        the model's parameters, the tail's derivative is taken through it
+        rather than through the blocks C and Hd."""
+        return _SchurHalfLogdet.apply(band, S, self, f)
+
+    def hld_backward(self, f: BandFactor, ct):
+        """Cotangents of the half log-det for (band, C, Hd): ct times
+        0.5 H^{-1} on the band's diagonal, H^{-1} off it, -A for C and
+        0.5 S^{-1} for Hd (_hinv_parts), _gated."""
+        hinv_band, A, Sinv = self._hinv_parts(f)
+        if not self.q:
+            z = hinv_band.new_zeros
+            return (self._gated(f, ct, hinv_band, ())[0], z((self.d, 0)),
+                    z((0, 0)))
+        return self._gated(f, ct, hinv_band, ((-ct) * A, (0.5 * ct) * Sinv))
 
     def arrow_half_logdet(self, band, C, Hd):
         """Differentiable half log-det of the arrowhead."""
@@ -238,6 +279,18 @@ def _finite(*parts):
         if x is not None:
             ok = ok & torch.isfinite(x).all()
     return ok
+
+
+class _SchurHalfLogdet(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, band, S, engine, f):
+        ctx.engine, ctx.f = engine, f
+        return engine.half_logdet(f)
+
+    @staticmethod
+    def backward(ctx, ct):
+        g_band, g_S = ctx.engine.schur_backward(ctx.f, ct)
+        return g_band, g_S, None, None
 
 
 class _HalfLogdet(torch.autograd.Function):

@@ -28,13 +28,11 @@ counted in `launches`, and no fallback from one to the other. Every
 plain version computes system r with the arithmetic and order of a
 one-system plain version in band_kernels.py, and every kernel runs that
 one-system kernel's device code at system r's offset: system r of a
-batched result equals the one-system result bit for bit. K8, K9 (up to
-bk.SMALL_BW) and K11 follow K1, K2 and K4; K10 follows K5
-(band_bwd_multi, nearest-first). K3 sums farthest-first at every width
-and K2 past bk.SMALL_BW, each on its own kernels, so K10's systems, and
-K9's past that width, agree with K3 and K2 to rounding only. (The
-replicate fits run bw = 3.) K8 keeps K1's guards (pivot floor 1e-12,
-|L| <= 1e3) and reports per system whether it clamped a pivot.
+batched result equals the one-system result bit for bit. K8 and K11
+follow K1 and K4; K9 and K10 follow K2 and K3 (and so K5), a row's
+products subtracted farthest-first at every width. K8 keeps K1's guards
+(pivot floor 1e-12, |L| <= 1e3) and reports per system whether it
+clamped a pivot.
 """
 from __future__ import annotations
 
@@ -142,22 +140,24 @@ def band_factor_batched(bands):
 # -- K9 / K10: solves -----------------------------------------------------
 
 def band_fwd_solve_batched_plain(L, rinv, B):
+    """band_fwd_solve_plain on every system: farthest-first."""
     d, W = L.shape[1:]
     X = torch.zeros_like(B)
     for j in range(d):
         acc = B[:, j].clone()
-        for t in range(1, min(j, W - 1) + 1):
+        for t in range(min(j, W - 1), 0, -1):
             acc = acc - X[:, j - t] * L[:, j - t, t, None]
         X[:, j] = acc * rinv[:, j, None]
     return X
 
 
 def band_bwd_solve_batched_plain(L, rinv, B):
+    """band_bwd_solve_plain on every system: farthest-first."""
     d, W = L.shape[1:]
     X = torch.zeros_like(B)
     for j in range(d - 1, -1, -1):
         acc = B[:, j].clone()
-        for t in range(1, min(d - 1 - j, W - 1) + 1):
+        for t in range(min(d - 1 - j, W - 1), 0, -1):
             acc = acc - X[:, j + t] * L[:, j, t, None]
         X[:, j] = acc * rinv[:, j, None]
     return X

@@ -34,10 +34,12 @@ and |Y| at 1e8. On a healthy equilibrated system none of them binds;
 the factor reports whether it clamped a pivot, which the half-log-det
 backward reads (band_arrow.py).
 
-K3 sums a row's products farthest-first at every width; K2 sums them
-nearest-first up to SMALL_BW and farthest-first above it, and K5
-nearest-first at every width (the comment at K2 below). Each plain
-version takes the order of the kernel that serves the width.
+Every solve (K2, K3, K5) sums a row's products farthest-first, the x
+farthest from the row first and the nearest last, so that one product
+of a row waits on the row just solved; their plain versions sum in the
+same order. K5 is K3's function on the M columns of the draws, on K3's
+kernels. Only K1's fused tail Y = L^{-1} C keeps its own nearest-first
+order (band_factor_plain).
 """
 from __future__ import annotations
 
@@ -58,8 +60,11 @@ Y_CAP = 1e8
 # widest band the kernels take: the JAX package sends bands up to 125 to
 # its kernels, and every kernel's shared memory holds that width
 BW_MAX = 125
-# widest band the register-window kernels serve (csrc/band_kernels.cu)
+# widest band the register-window kernels serve (csrc/band_kernels.cu);
+# wider bands take the warp kernels, whose blocks hold one right-hand side
+# for up to 4 of them and WS_WARPS for more (K5's draws): the C constants
 SMALL_BW = 8
+WS_WARPS = 8
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "band_kernels.cu"
@@ -135,6 +140,7 @@ def _library():
         for name in ("bgt_band_fwd_solve", "bgt_band_bwd_solve",
                      "bgt_band_bwd_multi"):
             getattr(lib, name).argtypes = [P, P, P, P, I, I, I, P]
+        lib.bgt_band_bwd_multi_warps.argtypes = [P, P, P, P, I, I, I, I, P]
         lib.bgt_band_takahashi.argtypes = [P, P, P, I, I, P]
         # the batched entry points (wrappers in band_batched.py)
         lib.bgt_band_factor_batched.argtypes = [P, P, P, P, P, P, I, I, I,
@@ -146,6 +152,7 @@ def _library():
         for name in ("bgt_band_factor", "bgt_band_factor_tile",
                      "bgt_band_tail_solve", "bgt_band_fwd_solve",
                      "bgt_band_bwd_solve", "bgt_band_bwd_multi",
+                     "bgt_band_bwd_multi_warps",
                      "bgt_band_takahashi", "bgt_band_factor_batched",
                      "bgt_band_fwd_solve_batched",
                      "bgt_band_bwd_solve_batched",
@@ -305,10 +312,10 @@ def band_factor(band, C):
     tensor: whether a raw pivot fell under PIVOT_FLOOR and was clamped.
 
     On a card K1 computes the first columns of Y beside the band, as many
-    as one block holds (bgt_band_factor_tile); the others are one K2
-    launch on the new factor with K1's cap on |Y| (bgt_band_tail_solve,
-    counted as a band_fwd_solve launch), which computes each column as
-    K1 would."""
+    as one block holds (bgt_band_factor_tile); the others are one launch
+    of K1's tail solve on the new factor (bgt_band_tail_solve: K1's
+    order and cap on |Y|, counted as a band_factor launch), which
+    computes each column as K1 would."""
     _check(band, "band", 2)
     _check(C, "C", 2)
     _check_bw(band.shape[1])
@@ -336,37 +343,24 @@ def band_factor(band, C):
             return L, rinv, Y0, hld, flag != 0
         C1 = C[:, tile:].contiguous()
         Y1 = torch.empty_like(C1)
-        _launch("band_fwd_solve", lib.bgt_band_tail_solve,
+        _launch("band_factor", lib.bgt_band_tail_solve,
                 _ptr(L), _ptr(rinv), _ptr(C1), _ptr(Y1), d, W - 1,
                 q - tile, _stream(band))
     return L, rinv, torch.cat([Y0, Y1], dim=1), hld, flag != 0
 
 
 # -- K2: forward solve ------------------------------------------------------
-#
-# The order of a row's sum. K2's register-window kernels (bw <=
-# SMALL_BW) take the products nearest-first (the x_{j-1} term first);
-# its warp kernels (wider bands) take them farthest-first (the x_{j-bw}
-# term first), the order in which a right-looking substitution produces
-# them. K3 sums farthest-first at every width: its register-window
-# kernel keeps the nearest product, the one on the row-to-row chain,
-# last. K5 keeps nearest-first at every width. Each plain version sums
-# in the order of the kernel that serves its width.
-
 
 def band_fwd_solve_plain(L, rinv, B):
     """Plain version of band_fwd_solve: row j is B[j] less the products
-    L[j-t, t] x_{j-t}, nearest-first for bw <= SMALL_BW, farthest-first
-    above, times rinv[j]."""
+    L[j-t, t] x_{j-t}, farthest-first (t = bw first), times rinv[j]."""
     d, W = L.shape
-    far_first = W - 1 > SMALL_BW
     X = torch.zeros_like(B)
     mult = _multipliers(L)[:, :, None]
     for j in range(d):
         n = min(j, W - 1)
         prods = _prev_rows(X, j, n) * mult[j, :n]
-        acc = _subtract_in_order(B[j], prods.flip(0) if far_first else prods)
-        X[j] = acc * rinv[j]
+        X[j] = _subtract_in_order(B[j], prods.flip(0)) * rinv[j]
     return X
 
 
@@ -386,27 +380,17 @@ def band_fwd_solve(L, rinv, B):
 
 # -- K3 / K5: backward solves -------------------------------------------------
 
-def _bwd_plain(L, rinv, B, far_first):
+def band_bwd_solve_plain(L, rinv, B):
+    """Plain version of band_bwd_solve and band_bwd_multi: row j is B[j]
+    less the products L[j, t] x_{j+t}, farthest-first (t = bw first),
+    times rinv[j]."""
     d, W = L.shape
     X = torch.zeros_like(B)
     for j in range(d - 1, -1, -1):
         n = min(d - 1 - j, W - 1)
         prods = X[j + 1:j + 1 + n] * L[j, 1:1 + n, None]
-        acc = _subtract_in_order(B[j], prods.flip(0) if far_first else prods)
-        X[j] = acc * rinv[j]
+        X[j] = _subtract_in_order(B[j], prods.flip(0)) * rinv[j]
     return X
-
-
-def band_bwd_solve_plain(L, rinv, B):
-    """Plain version of band_bwd_solve: row j is B[j] less the products
-    L[j, t] x_{j+t}, farthest-first, times rinv[j]."""
-    return _bwd_plain(L, rinv, B, far_first=True)
-
-
-def band_bwd_multi_plain(L, rinv, Z):
-    """Plain version of band_bwd_multi: band_bwd_solve's recurrence with
-    the products nearest-first at every width."""
-    return _bwd_plain(L, rinv, Z, far_first=False)
 
 
 def _bwd(name, fn_name, plain, L, rinv, B):
@@ -430,10 +414,31 @@ def band_bwd_solve(L, rinv, B):
 
 
 def band_bwd_multi(L, rinv, Z):
-    """X with L^T X = Z for the (d, M) noise of M posterior draws (the
-    same recurrence as band_bwd_solve, kept as its own kernel entry)."""
+    """X with L^T X = Z for the (d, M) noise of M posterior draws:
+    band_bwd_solve's function and kernels, counted as its own entry."""
     return _bwd("band_bwd_multi", "bgt_band_bwd_multi",
-                band_bwd_multi_plain, L, rinv, Z)
+                band_bwd_solve_plain, L, rinv, Z)
+
+
+def band_bwd_multi_warps(L, rinv, Z, warps):
+    """band_bwd_multi on a card with `warps` draw columns a block of the
+    warp kernel (bw > SMALL_BW; 1 .. 2 WS_WARPS), the block shapes timed
+    side by side in chip_smoke.py. Not on any fit's path, and not
+    counted."""
+    _check_factor(L, rinv)
+    _check_rhs(L, Z)
+    if not _on_cuda(L, rinv, Z):
+        raise ValueError("band_bwd_multi_warps times the CUDA kernel: "
+                         "its tensors must lie on a card")
+    X = torch.empty_like(Z)
+    with _device(L):
+        err = _library().bgt_band_bwd_multi_warps(
+            _ptr(L), _ptr(rinv), _ptr(Z), _ptr(X), L.shape[0],
+            L.shape[1] - 1, Z.shape[1], warps, _stream(L))
+    if err != 0:
+        raise RuntimeError(f"band_bwd_multi_warps: CUDA error {err} at "
+                           "launch")
+    return X
 
 
 # -- K4: Takahashi selected inverse -----------------------------------------
@@ -492,4 +497,4 @@ class BandOps:
 KERNELS = BandOps(band_factor, band_fwd_solve, band_bwd_solve,
                   band_bwd_multi, band_takahashi)
 PLAIN = BandOps(band_factor_plain, band_fwd_solve_plain, band_bwd_solve_plain,
-                band_bwd_multi_plain, band_takahashi_plain)
+                band_bwd_solve_plain, band_takahashi_plain)

@@ -52,11 +52,16 @@ Phases (any failure raises and the script exits non-zero):
      bench_bigiid generator (n = 1e5, IWP3 k = 2000, q = 1e4 levels
      clustered in x, merged into the band: d = 13993, bw = 34, q = 3),
      twice, counting K1-K5 launches, beside phase 9's scatter_iid fit of
-     the same data: its mode held to phase 9's within MERGED_MODE_TOL, its
-     value at theta_IWP = 40 and at RUNAWAY_MODE above its value at the
-     mode, no sick-factor gate warning; the two engines' theta gradients
-     held to each other at MERGED_GATE_THETA; the driver's prior
-     quadratic logged expanded, as a sum of squares and in longdouble;
+     the same data: its mode held to phase 9's within MERGED_MODE_TOL,
+     its lognormconst within MERGED_LNC_TOL, its outer Hessian positive
+     definite with each eigenvalue within MERGED_EIG_RTOL of phase 9's,
+     at phase 9's mode (the inner Newton run tight) its central
+     difference within MERGED_FD_TOL of its gradient and the tail factor
+     on its plain route there and at its own mode; its value at
+     theta_IWP = 40 and at RUNAWAY_MODE above its value at the mode, no
+     sick-factor gate warning; the two engines' theta gradients held to
+     each other at MERGED_GATE_THETA; the driver's prior quadratic
+     logged expanded, as a sum of squares and in longdouble;
  15. the kernel engine against the plain engine at a fixed point of a
      reduced merged model (n = 5000, k = 100, q = 600);
  16. the tail-term cell: bench_scattered_iid's engine='banded' q = 512
@@ -65,8 +70,10 @@ Phases (any failure raises and the script exits non-zero):
      MERGED_GATE_THETA.
 Phase 1 builds csrc/band_kernels.cu (K1-K5, K8-K11) and
 csrc/dense_kernels.cu (K6, K7) with two nvcc processes started together;
-phase 2 also checks K3 and K5 bit for bit at every register-window
-width (bw = 1..8), K6/K7 against their plain versions on healthy and
+phase 2 also checks K2, K3 and K5 bit for bit with their one
+(farthest-first) plain version at every register-window width (bw =
+1..8), K9/K10 system by system against K2/K3/K5 bit for bit at bw = 3,
+12, 34 and 70, K6/K7 against their plain versions on healthy and
 indefinite blocks, K7 bit for bit at r = 1, 2, 32, 33, 128, 1000 and 2051
 right-hand sides both ways and timed against solve_triangular at r = 1
 and 2051, the blocked factor and solves at the headline dimension 2051,
@@ -74,7 +81,9 @@ and K1-K5 at
 the shapes the JAX package sends to its chunked kernels K1c-K5c
 (CHUNKED_SHAPES), the corners of bw <= 125 and of the tail width
 included, against their plain versions (on the whole system, on the
-first PREFIX columns at PREFIX_SHAPES) and against the band.
+first PREFIX columns at PREFIX_SHAPES) and against the band, with K5 at
+the merged shape timed with 1, 4, 8 and 16 draw columns a block of its
+warp kernel.
 A line near the end is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -172,7 +181,13 @@ MERGED_GATE_THETA = (-0.298, 3.843)
 # where the merged fit ran away to before the prior quadratic became a sum
 # of squares, and how close the merged mode is held to phase 9's
 RUNAWAY_MODE = (51.240565, 4.359255)
-MERGED_MODE_TOL = 0.1
+MERGED_MODE_TOL = 0.02
+# the merged fit against phase 9's of the same data: lognormconst (nats),
+# each outer-Hessian eigenvalue (relative), and at phase 9's mode the
+# merged value's central difference against its gradient, per coordinate
+MERGED_LNC_TOL = 0.05
+MERGED_EIG_RTOL = 0.25
+MERGED_FD_TOL = 0.05
 # phase 14's check at phase 9's mode: the inner Newton with no step floor,
 # stopping after this many steps without a 5% smaller step (or at its
 # cap), and the central-difference step of the Laplace values there
@@ -367,7 +382,7 @@ def phase_kernels(bk, dev):
             Br = torch.randn((D, r), generator=g, device=dev,
                              dtype=torch.float64)
             log(f"  {name} r={r}: {cuda_ms(lambda: fn(L, rinv, Br)):.4f} ms")
-    check_bwd_orders(bk, dev, g)
+    check_solve_orders(bk, dev, g)
 
     Z = bk.band_takahashi(L, rinv)
     Zp = bk.band_takahashi_plain(L, rinv)
@@ -386,10 +401,12 @@ def phase_kernels(bk, dev):
     Zn = torch.randn((D, M_DRAWS), generator=g, device=dev,
                      dtype=torch.float64)
     X = bk.band_bwd_multi(L, rinv, Zn)
-    err = check_close("K5 draws", X, bk.band_bwd_multi_plain(L, rinv, Zn))
+    Xp = bk.band_bwd_solve_plain(L, rinv, Zn)
+    err = check_close("K5 draws", X, Xp)
+    check_equal(f"K5 draws (r = {M_DRAWS}) against the plain solve", X, Xp)
     rows["band_bwd_multi"] = dict(
         err=err, ms=cuda_ms(lambda: bk.band_bwd_multi(L, rinv, Zn)),
-        plain_ms=cuda_ms(lambda: bk.band_bwd_multi_plain(L, rinv, Zn), n=3,
+        plain_ms=cuda_ms(lambda: bk.band_bwd_solve_plain(L, rinv, Zn), n=3,
                          warm=1),
         library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
             Ld.T, Zn, upper=True)),
@@ -405,22 +422,24 @@ def phase_kernels(bk, dev):
     return rows
 
 
-def check_bwd_orders(bk, dev, g):
-    """K3 at every register-window width (bw = 1..8, d = D, r = 1 and 3)
-    against its plain version, which sums a row farthest-first: bit for
-    bit; K5 on the same factor keeps the nearest-first order."""
+def check_solve_orders(bk, dev, g):
+    """K2, K3 and K5 at every register-window width (bw = 1..8, d = D,
+    r = 1 and 3) against the one plain version of each, which sums a
+    row's products farthest-first: bit for bit."""
     for bw in range(1, bk.SMALL_BW + 1):
         _, band, _, _ = spd_problem(dev, D, bw, 0, seed=10 + bw)
         L, rinv, _, _, _ = bk.band_factor(band, band.new_zeros((D, 0)))
         for r in (1, 3):
             B = torch.randn((D, r), generator=g, device=dev,
                             dtype=torch.float64)
-            check_equal(f"K3 bw={bw} r={r}", bk.band_bwd_solve(L, rinv, B),
-                        bk.band_bwd_solve_plain(L, rinv, B))
-        check_equal(f"K5 bw={bw}", bk.band_bwd_multi(L, rinv, B),
-                    bk.band_bwd_multi_plain(L, rinv, B))
-    log(f"  K3 bit for bit with its farthest-first plain version at d={D}, "
-        f"bw = 1..{bk.SMALL_BW}, r = 1 and 3 (K5, nearest-first, too): ok")
+            for name, fn, plain in (
+                    ("K2", bk.band_fwd_solve, bk.band_fwd_solve_plain),
+                    ("K3", bk.band_bwd_solve, bk.band_bwd_solve_plain),
+                    ("K5", bk.band_bwd_multi, bk.band_bwd_solve_plain)):
+                check_equal(f"{name} bw={bw} r={r}", fn(L, rinv, B),
+                            plain(L, rinv, B))
+    log(f"  K2, K3 and K5 bit for bit with their farthest-first plain "
+        f"versions at d={D}, bw = 1..{bk.SMALL_BW}, r = 1 and 3: ok")
 
 
 def check_other_shapes(bk, dev):
@@ -441,7 +460,7 @@ def check_other_shapes(bk, dev):
         for name, fn, plain in (
                 ("K2", bk.band_fwd_solve, bk.band_fwd_solve_plain),
                 ("K3", bk.band_bwd_solve, bk.band_bwd_solve_plain),
-                ("K5", bk.band_bwd_multi, bk.band_bwd_multi_plain)):
+                ("K5", bk.band_bwd_multi, bk.band_bwd_solve_plain)):
             check_close(f"{name} {tag}", fn(L, rinv, B), plain(L, rinv, B))
         check_close(f"K4 {tag}", bk.band_takahashi(L, rinv),
                     bk.band_takahashi_plain(L, rinv))
@@ -484,11 +503,10 @@ def check_equal(name, got, want):
 
 def check_batched_against_one_system(bk, bb, tag, bands, Bs):
     """K8-K11 on a batch against their plain versions (RTOL) and, system
-    by system, against K1 (no tail), K4 and K5 bit for bit (K10 runs K5's
-    nearest-first code), and K9 against K2 bit for bit up to bk.SMALL_BW.
-    K3, and K2 past bk.SMALL_BW, sum a row farthest-first: K10 and, past
-    that width, K9 are held per system to them at RTOL. Returns the
-    factor and the largest kernel-plain difference per kernel."""
+    by system, against K1 (no tail), K2, K3, K5 and K4 bit for bit: every
+    solve sums farthest-first, and K9/K10 run K2's and K3's code at the
+    system's offset. Returns the factor and the largest kernel-plain
+    difference per kernel."""
     nr, d, _ = bands.shape
     L, rinv, hld, _ = bb.band_factor_batched(bands)
     Lp, rinvp, hldp, _ = bb.band_factor_batched_plain(bands)
@@ -514,7 +532,6 @@ def check_batched_against_one_system(bk, bb, tag, bands, Bs):
         sols.append((B, Y, X))
     none = bands.new_zeros((d, 0))
     same = True
-    one_order = bands.shape[2] - 1 <= bk.SMALL_BW
     for r in range(nr):
         L1, rinv1, _, hld1, _ = bk.band_factor(bands[r].contiguous(), none)
         same &= (torch.equal(L[r], L1) and torch.equal(rinv[r], rinv1)
@@ -522,17 +539,11 @@ def check_batched_against_one_system(bk, bb, tag, bands, Bs):
                  and torch.equal(Z[r], bk.band_takahashi(L1, rinv1)))
         for B, Y, X in sols:
             Br = B[r].contiguous()
-            Y1 = bk.band_fwd_solve(L1, rinv1, Br)
-            if one_order:
-                same &= torch.equal(Y[r], Y1)
-            else:
-                check_close(f"K9 {tag} system {r} against K2", Y[r], Y1)
-            check_close(f"K10 {tag} system {r} against K3", X[r],
-                        bk.band_bwd_solve(L1, rinv1, Br))
-            same &= torch.equal(X[r], bk.band_bwd_multi(L1, rinv1, Br))
-    log(f"  K8-K11 {tag}: every system against K1 (q=0), "
-        + ("K2, " if one_order else "") + f"K4 and K5 bit for bit "
-        f"{'ok' if same else 'FAIL'}")
+            same &= (torch.equal(Y[r], bk.band_fwd_solve(L1, rinv1, Br))
+                     and torch.equal(X[r], bk.band_bwd_solve(L1, rinv1, Br))
+                     and torch.equal(X[r], bk.band_bwd_multi(L1, rinv1, Br)))
+    log(f"  K8-K11 {tag}: every system against K1 (q=0), K2, K3, K5 and "
+        f"K4 bit for bit {'ok' if same else 'FAIL'}")
     require(same, f"{tag}: batched kernels equal the one-system kernels")
     return (L, rinv), errs
 
@@ -596,12 +607,15 @@ def phase_batched_kernels(bk, bb, dev):
                 f"{cuda_ms(lambda: fn(L, rinv, B4)):.4f} ms")
         del A, Ld
     check_one_bad_slot(bb, dev)
-    # off the register-window path (bw = 12), one system and a few
-    for nr in (1, 3):
-        _, bands = spd_batch(dev, nr, 300, 12, seed=2)
-        Bs = [torch.randn((nr, 300, m), generator=g, device=dev,
-                          dtype=torch.float64) for m in (1, 5)]
-        check_batched_against_one_system(bk, bb, f"d=300 bw=12 NR={nr}",
+    # off the register-window path: the warp kernels with one, two and
+    # four register slots (bw = 12, 34, 70), one right-hand side and a
+    # block of several
+    for d, bw, nr in ((300, 12, 1), (300, 12, 3), (600, 34, 2),
+                      (600, 70, 2)):
+        _, bands = spd_batch(dev, nr, d, bw, seed=2)
+        Bs = [torch.randn((nr, d, m), generator=g, device=dev,
+                          dtype=torch.float64) for m in (1, 5, 40)]
+        check_batched_against_one_system(bk, bb, f"d={d} bw={bw} NR={nr}",
                                          bands, Bs)
     return rows
 
@@ -1409,7 +1423,7 @@ def check_band_shape(bk, dev, d, bw, q, seed, m):
              B3p),
             ("band_bwd_solve", bk.band_bwd_solve, bk.band_bwd_solve_plain,
              B3p),
-            ("band_bwd_multi", bk.band_bwd_multi, bk.band_bwd_multi_plain,
+            ("band_bwd_multi", bk.band_bwd_multi, bk.band_bwd_solve_plain,
              Zp)):
         got = fn(Lk, rk, rhs)
         want, tp = timed_call(lambda: plain(Lk, rk, rhs))
@@ -1485,6 +1499,22 @@ def library_times(dev, band, C, L, B, Z):
     return out
 
 
+def time_k5_blocks(bk, L, rinv, Z):
+    """K5 (bw > SMALL_BW) with 1, 4, 8 and 16 draw columns a block of the
+    warp kernel, timed side by side, each bit for bit with the wrapper's
+    choice: {warps: ms}."""
+    X = bk.band_bwd_multi(L, rinv, Z)
+    out = {}
+    for w in (1, 4, 8, 16):
+        check_equal(f"K5 with {w} warps a block", bk.band_bwd_multi_warps(
+            L, rinv, Z, w), X)
+        out[w] = cuda_ms(lambda: bk.band_bwd_multi_warps(L, rinv, Z, w), n=5)
+    log(f"  K5 at {tuple(L.shape)} x {Z.shape[1]} draws, ms by draw columns "
+        f"a block of the warp kernel: {out} (the wrapper takes "
+        f"{bk.WS_WARPS})")
+    return out
+
+
 def phase_chunked_kernels(bk, dev):
     """K1-K5 at the chunked kernels' shapes; rows at the merged shape."""
     log("== phase 2 (chunked shapes): K1-K5 at (d, bw, q) in "
@@ -1502,9 +1532,11 @@ def phase_chunked_kernels(bk, dev):
                     r["ms_r3"])
         if (d, bw, q) == MERGED_SHAPE:
             merged = rows
-            band, C, L, _, B, Z = arrays
+            band, C, L, rinv, B, Z = arrays
             lib = library_times(dev, band, C, L, B, Z)
-            del band, C, L, B, Z
+            rows["band_bwd_multi"]["ms_by_warps"] = time_k5_blocks(
+                bk, L, rinv, Z)
+            del band, C, L, rinv, B, Z
         del arrays
     for name, r in merged.items():
         r["library_ms"] = lib[name]
@@ -1618,15 +1650,15 @@ def phase_merged_headline(tbg, bk, cd, dev, scatter_fit):
         f"{np.round(sm.mode, 6).tolist()}, lognormconst "
         f"{sm.lognormconst:.6f}; |diff| mode {np.round(dmode, 6).tolist()} "
         f"(held to {MERGED_MODE_TOL}), lognormconst merged - scatter_iid "
-        f"{dlnc:.6f} (logged, not held: ROADMAP Queue 3 #4)")
-    # the outer Hessian AGHQ's rule is built on (logged, not held: the
-    # merged value's noise can leave it indefinite, Queue 3 #4)
+        f"{dlnc:.6f} (held to {MERGED_LNC_TOL})")
+    # the outer Hessian AGHQ's rule is built on
+    eig = {}
     for name, H in (("merged", m.hessian), ("scatter_iid", sm.hessian)):
-        ev = np.linalg.eigvalsh(np.asarray(H, np.float64))
-        log(f"  {name} outer Hessian eigenvalues {ev.tolist()}: positive "
-            f"definite {bool(ev.min() > 0)}")
+        eig[name] = np.linalg.eigvalsh(np.asarray(H, np.float64))
+        log(f"  {name} outer Hessian eigenvalues {eig[name].tolist()}: "
+            f"positive definite {bool(eig[name].min() > 0)}")
     sbe = sm.backend
-    rel, vals = [], {}
+    rel, vals, left = [], {}, {}
     for th in (np.asarray(MERGED_GATE_THETA), np.asarray(sm.mode),
                np.asarray(m.mode)):
         vm, gm, stm = be.value_and_grad(th, be.init_state())
@@ -1638,7 +1670,7 @@ def phase_merged_headline(tbg, bk, cd, dev, scatter_fit):
             f"cold: merged {float(vm):.6f} {np.round(gm, 4)}, scatter_iid "
             f"{float(vs):.6f} {np.round(gs, 4)}; gradients differ by "
             f"{rel[-1]:.3e} of the largest")
-        gate_diagnostic(be, th)
+        left[tuple(th)] = gate_diagnostic(be, th)[1]
         log_prior_quad("merged", be, stm[0], stm[1], th)
         log_prior_quad("scatter_iid", sbe.core, sts[0], sts[2], th)
     # far out in theta_IWP, where the expanded prior quadratic let the
@@ -1649,7 +1681,7 @@ def phase_merged_headline(tbg, bk, cd, dev, scatter_fit):
         far[th] = float(be.laplace_nll(np.asarray(th), be.init_state())[0])
         log(f"  merged Laplace nll at {th}, cold: {far[th]:.6f} (at the "
             f"mode {v_mode:.6f})")
-    tight_fd(be, sbe, np.asarray(sm.mode))
+    fd = tight_fd(be, sbe, np.asarray(sm.mode))
     # the merged engine's theta gradient at MERGED_GATE_THETA is the
     # scattered-IID engine's: the half-log-det backward keeps the log-det's
     # cotangents on this healthy factor
@@ -1657,6 +1689,19 @@ def phase_merged_headline(tbg, bk, cd, dev, scatter_fit):
             f"{MERGED_GATE_THETA} within 1e-3 of the scattered-IID engine's")
     require(dmode.max() <= MERGED_MODE_TOL, f"the merged mode within "
             f"{MERGED_MODE_TOL} of the scattered-IID mode: {dmode.tolist()}")
+    require(abs(dlnc) <= MERGED_LNC_TOL, f"the merged lognormconst within "
+            f"{MERGED_LNC_TOL} nats of the scattered-IID one: {dlnc}")
+    require(eig["merged"].min() > 0 and np.all(
+        np.abs(eig["merged"] - eig["scatter_iid"])
+        <= MERGED_EIG_RTOL * np.abs(eig["scatter_iid"])),
+        f"the merged outer Hessian positive definite, each eigenvalue "
+        f"within {MERGED_EIG_RTOL:.0%} of the scattered-IID one's: {eig}")
+    _, g_tight, cd = fd["merged"]
+    require(np.all(np.abs(cd - g_tight) <= MERGED_FD_TOL), f"the merged "
+            f"value's central difference at phase 9's mode within "
+            f"{MERGED_FD_TOL} of its gradient: {cd} against {g_tight}")
+    require(not any(left[tuple(np.asarray(th))] for th in (sm.mode, m.mode)),
+            f"the tail factor on its plain route at both modes: {left}")
     require(all(v > v_mode for v in far.values()), "the merged value at "
             f"theta_IWP = 40 and at {RUNAWAY_MODE} above its value at the "
             f"mode: {far} against {v_mode}")
@@ -1754,7 +1799,7 @@ def gate_diagnostic(be, th):
     of theta: the smallest pivot and whether K1 clamped a pivot, the tail
     factor left its plain route, or an entry of H^{-1} the backward reads
     is not finite (the gate drops the log-det's cotangents where any
-    holds)."""
+    holds). Returns the three reasons as bools."""
     _, _, (V, t) = be.value_and_grad(th, be.init_state())
     tht = torch.tensor(th, dtype=torch.float64, device=be.device)
     with torch.no_grad():
@@ -1765,6 +1810,7 @@ def gate_diagnostic(be, th):
     log(f"    gate: min pivot {float((af.rinv ** -2).min()):.3e}; a pivot "
         f"clamped {clamped}, the tail left its plain route {left}, H^-1 not "
         f"finite {nonfinite}: the gate is {state}")
+    return clamped, left, nonfinite
 
 
 def phase_merged_fixed_point(tbg, bk, dev):
@@ -1924,6 +1970,8 @@ def main():
                        ms_by_shape=r["ms_by_shape"])
             if "ms_r3_by_shape" in r:   # K2c/K3c at 3 right-hand sides
                 row["ms_r3_by_shape"] = r["ms_r3_by_shape"]
+            if "ms_by_warps" in r:      # K5c by warps a block
+                row["ms_by_warps"] = r["ms_by_warps"]
         kernels.append(row)
     log(f"headline fit wall s: first {wall1:.3f}, second {wall2:.3f}")
     log(f"replicate fits, wall s per fit: {per_fit}")

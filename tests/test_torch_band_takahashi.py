@@ -8,13 +8,12 @@ Tolerances: K4 and K5 run in f32 on the TPU side, so rtol 1e-5 (with an
 absolute floor of 1e-5 of the largest entry, for entries near zero), and
 1e-10 against dense f64 numpy.
 
-The summation orders of the plain solves, at bw = 3 (a register-window
-width) and at bw = 12 and 40 (d = 200, past SMALL_BW): K3 farthest-first
-at every width, K2 nearest-first up to SMALL_BW and farthest-first past
-it, and K5 nearest-first at every width, each equal bit for bit to a
-numpy loop in that order, and the farthest-first solves against
-scipy.linalg.solve_triangular on the dense factor at rtol 1e-12 (a
-well-conditioned band, f64 both sides).
+The summation order of the plain solves, at bw = 3 (a register-window
+width) and at bw = 12 and 40 (d = 200, past SMALL_BW): K2, K3 and K5
+sum a row's products farthest-first at every width, each equal bit for
+bit to a numpy loop in that order (and not to one in the other order),
+and against scipy.linalg.solve_triangular on the dense factor at rtol
+1e-12 (a well-conditioned band, f64 both sides).
 
 Three cases, on purpose (test_torch_band_kernels.py, docstring).
 """
@@ -69,15 +68,15 @@ def test_takahashi_and_multi_rhs_match_pallas(d, bw):
                                atol=1e-5 * np.abs(Xref).max())
 
 
-def _loop_solve(L, rinv, B, trans, far_first):
+def _loop_solve(L, rinv, B, trans, farthest):
     """numpy loop of the band substitution, a row's products subtracted
-    farthest-first or nearest-first (the plain versions' orders)."""
+    farthest-first (the plain versions' order) or nearest-first."""
     d, W = L.shape
     X = np.zeros_like(B)
     for j in (range(d - 1, -1, -1) if trans else range(d)):
         ts = range(1, min(W - 1, d - 1 - j if trans else j) + 1)
         acc = B[j].copy()
-        for t in (reversed(ts) if far_first else ts):
+        for t in (reversed(ts) if farthest else ts):
             acc = acc - ((L[j, t] * X[j + t]) if trans
                          else (L[j - t, t] * X[j - t]))
         X[j] = acc * rinv[j]
@@ -95,21 +94,19 @@ def _check_solve_orders():
         B = rng.normal(size=(d, R))
         Ln, rn = L.numpy(), rinv.numpy()
         Ld = _dense_band(Ln, bw)
-        for plain, trans, far in (
-                (bk.band_fwd_solve_plain, False, bw > bk.SMALL_BW),
-                (bk.band_bwd_solve_plain, True, True),
-                (bk.band_bwd_multi_plain, True, False)):
+        for plain, trans in ((bk.band_fwd_solve_plain, False),
+                             (bk.band_bwd_solve_plain, True),
+                             (bk.PLAIN.bwd_multi, True)):
             X = plain(L, rinv, torch.tensor(B)).numpy()
             np.testing.assert_array_equal(X, _loop_solve(Ln, rn, B, trans,
-                                                         far))
+                                                         True))
             # the two orders round differently here
             assert not np.array_equal(X, _loop_solve(Ln, rn, B, trans,
-                                                     not far))
-            if far:
-                np.testing.assert_allclose(
-                    X, scipy.linalg.solve_triangular(Ld, B, lower=True,
-                                                     trans=trans),
-                    rtol=1e-12, atol=1e-12 * np.abs(X).max())
+                                                     False))
+            np.testing.assert_allclose(
+                X, scipy.linalg.solve_triangular(Ld, B, lower=True,
+                                                 trans=trans),
+                rtol=1e-12, atol=1e-12 * np.abs(X).max())
 
 
 def test_wrappers_check_arguments():

@@ -23,7 +23,10 @@ CPU in f64.
    warm Laplace nll to rtol 1e-9, the theta gradient to rtol 1e-8 (the
    prior's V'PV, a sum of large terms that cancel, rounds in each
    package's own order: ROADMAP Queue 3, as for the scattered-IID
-   engine); the convert pair gives the same backend.
+   engine); the convert pair gives the same backend. Where the prior
+   pins the driver (theta_IWP = 30 and 40) the tail factor stays on its
+   plain route and the half-log-det grows by 0.5 d_drv a unit of
+   theta_IWP to 1e-6 (ROADMAP Queue 3 #4).
 3. The port's s = 2 AGHQ fit (k = 3) of that problem, held to the JAX
    package without a JAX fit: the JAX package's Laplace value and its
    gradient at the port's mode (value rtol 1e-9, |gradient| < 1e-4), its
@@ -400,8 +403,19 @@ def test_merged_build_and_fixed_point_match_jax(jax_ref, merged):
     val, g, (Vs, ts) = tbe.value_and_grad(th, (nV, nt))
     # the value is bounded below in theta_IWP: far above it (the prior
     # then pins V' to Z0 t) it is larger than here
-    val40 = tbe.laplace_nll(torch.tensor([40.0, th[1]]))[0]
+    val40, st40 = tbe.laplace_nll(torch.tensor([40.0, th[1]]))
     assert float(val40) > float(val), (float(val40), float(val))
+    # there the tail's Schur complement, a Gram of residuals, stays on its
+    # plain route and 0.5 log|H| grows by 0.5 d_drv a unit of theta_IWP
+    # (Hd - Y^T Y cancels there: ROADMAP Queue 3 #4)
+    hld = []
+    for t_iwp, st in ((30.0, None), (40.0, st40)):
+        thb = torch.tensor([t_iwp, th[1]])
+        Vb, tb = st if st else tbe.laplace_nll(thb)[1]
+        fb = tbe.hessian_factor(Vb, tb, thb)
+        assert not bool(fb[0].tail_left)
+        hld.append(float(tbe.half_logdet_H(fb)))
+    assert abs(hld[1] - hld[0] - 0.5 * tbe.d_drv * 10.0) < 1e-6, hld
     jval, jg = fns["vg"](np.asarray(th), np.asarray(nV.numpy()),
                          np.asarray(nt.numpy()))
     np.testing.assert_allclose(float(val), float(jval), rtol=1e-9)
