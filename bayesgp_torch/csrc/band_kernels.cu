@@ -12,9 +12,10 @@
 // -fmad=false: every product is rounded before it is added, as in the
 // plain PyTorch versions beside the wrappers, and each kernel sums in the
 // same order as its plain version, so the two agree bit for bit. Every
-// solve sums a row's products in one order, farthest-first, except K1's
-// fused tail Y = L^{-1} C and the solve that extends it to wide tails
-// (bgt_band_tail_solve), which keep K1's nearest-first order.
+// kernel sums in one order, farthest-first: a solve subtracts a row's
+// products from the solution farthest back first, and the factor an
+// entry's products from the column farthest back first, as a right-looking
+// factor makes them; K1's tail Y = L^{-1} C is K2's solve with a cap.
 //
 // What these replace, and what bounds them on this card
 // ------------------------------------------------------
@@ -62,16 +63,19 @@
 // Design against that floor. Nothing on a chain waits on device memory
 // or on a modulo: blocks stage the next rows of their inputs into shared
 // memory ahead of the recurrence, and ring positions are stepped.
-//   K1  For bandwidths up to SMALL_BW (the IWP path has bw = p = 3) the
-//       factor is compiled per bandwidth and keeps the recurrence window
-//       in registers: one thread runs the column recurrence (pivot, sqrt,
-//       divide, the bw entries) with the last bw columns in registers
-//       and no barrier inside a chunk; a second warp computes the tail
-//       rows Y[j] = (C[j] - sum L[j, j-t] Y[j-t]) / L_jj of the previous
-//       chunk meanwhile, one thread per tail column; the log pivots are
-//       taken by the whole block after the loop. Wider bands take a
-//       generic kernel: threads across one column's band entries and
-//       tail columns.
+//   K1  is right-looking at every width: step j scales column j and
+//       subtracts its products from the columns after it, so pivot j+1
+//       is final one product after step j (the chain from one pivot to
+//       the next: a sqrt, a reciprocal, two multiplies, a subtract). For
+//       bandwidths up to SMALL_BW (the IWP path has bw = p = 3) the
+//       factor is compiled per bandwidth and one thread keeps the W
+//       pending columns in registers, while warps 1.. compute the tail
+//       rows of the previous chunk, one thread per tail column (factor_
+//       small). Wider bands take factor_wide: a chain warp, bulk warps
+//       that subtract the other products from a ring of pending columns
+//       in shared memory, coupled by one named barrier a step, and tail warps
+//       that solve for Y a tile behind (its comment). The log pivots are
+//       taken by the whole block after the loop.
 //   The solves (K2, K3, K5, K9, K10) sum each row farthest-first, so
 //       only the last product of a row waits on the row just solved: the
 //       chain from one row to the next is one multiply, one subtract and
@@ -83,19 +87,17 @@
 //       one staged ring of L where a block holds several columns (K5's
 //       draws). K5 is K3 on M columns, and K9/K10 run K2's and K3's code
 //       at each system's offset.
-//   K1's tail columns past its block (bgt_band_tail_solve) keep K1's
-//       nearest-first order and cap, on their own kernels (band_tail_small
-//       with the window in registers, band_tail_kernel with a shared ring).
+//   K1's tail columns past its block (bgt_band_tail_solve) run on K2's
+//       kernels with |Y| capped at 1e8 (their template flag CAP).
 // K4 runs once per gradient and keeps the generic form: threads across
 // the bw entries of a row of H^{-1}, two barriers a row.
 //
 // Every shape the JAX package sends to its kernels runs here, those of
 // its chunked kernels (K1c-K5c, band_kernels.py:466-634) included:
 // bw <= 125 (BW_MAX in the wrapper), any tail width and any d. No buffer
-// grows with d. K1's block holds the tail columns bgt_band_factor_tile
-// allows (its threads and shared memory); the wrapper computes the
-// others with bgt_band_tail_solve, a forward solve with K1's cap on |Y|
-// that sums each column in K1's order.
+// grows with d. K1's block computes the tail columns bgt_band_factor_tile
+// allows; the wrapper computes the others with bgt_band_tail_solve, K2's
+// forward solve with K1's cap on |Y|, which sums each column as K1 does.
 //
 // The batched kernels. The TPU packed NR systems side by side on the 128
 // lanes because one system filled 6% of a vector; here a system is a
@@ -114,12 +116,11 @@ namespace {
 
 constexpr int STAGE = 32;            // rows staged per refill
 constexpr int SMALL_BW = 8;          // widest band with a register window
-constexpr int MAX_TAIL_SMALL = 480;  // tail columns of the small K1 block
+constexpr int MAX_TAIL_SMALL = 224;  // tail columns of the small K1 block
 constexpr double PIVOT_FLOOR = 1e-12;
 constexpr double L_CAP = 1e3;
 constexpr double Y_CAP = 1e8;
 constexpr int RHS_THREADS = 128;     // threads a block of the solves
-constexpr int MAX_THREADS = 1024;    // threads a block may have
 constexpr size_t DEFAULT_SMEM = 48 * 1024;
 constexpr size_t MAX_SMEM = 227 * 1024;  // dynamic shared memory a block
                                          // may have on sm_90
@@ -171,9 +172,20 @@ __device__ void half_logdet(double* piv, double* hld, int d) {
 }
 
 // ------------------------------------------------------ K1, bw <= 8 --
-// Chunk s: warp 0 stages the band rows of chunk s and its lane 0 runs
-// their columns; warps 1.. compute the tail rows of chunk s-1 from the
-// multipliers L[j, j-t] and 1/L_jj lane 0 left in a double buffer.
+// Right-looking, with the band window in registers. Lane 0 of warp 0 holds
+// the columns j .. j+BW of the window, pend[b][o] = A[j+b+o, j+b] less the
+// products of the columns before j. Step j scales column j and subtracts
+// l_a l_b from entry (j+a, j+b) of the columns after it, so every entry
+// takes its products in step order, the column farthest back first, and
+// pivot j+1 is final once step j has subtracted l_1^2 from it: one
+// product on the chain from one pivot to the next. Then the window moves
+// a column; the column entering it comes from the raw band rows warp 0
+// staged for the chunk. Warps 1.. compute the tail rows Y[j] = (C[j] -
+// sum_t L[j, j-t] Y[j-t]) / L_jj of the previous chunk meanwhile, one
+// thread per tail column, farthest-first (K2's order), from the
+// multipliers lane 0 leaves for each row in a ring of three chunk buffers
+// (step j writes L[j+t, j] for row j+t, which may lie in the next chunk);
+// the log pivots are taken by the whole block after the loop.
 template <int BW>
 __device__ __forceinline__ void factor_small(const double* __restrict__ band,
                                              const double* __restrict__ C,
@@ -185,78 +197,88 @@ __device__ __forceinline__ void factor_small(const double* __restrict__ band,
                                              int* __restrict__ flag,
                                              int d, int q, double* sm) {
     constexpr int W = BW + 1;
-    double* Bs = sm;                      // [STAGE][W] band rows, chunk s
-    double* Ms = Bs + STAGE * W;          // [2][STAGE][BW] L[j, j-t]
-    double* Rb = Ms + 2 * STAGE * BW;     // [2][STAGE] 1/L_jj
+    double* Bs = sm;                      // [STAGE][W] columns entering
+    double* Ms = Bs + STAGE * W;          // [3][STAGE][BW] L[j, j-t] at t-1
+    double* Rb = Ms + 3 * STAGE * BW;     // [3][STAGE] 1/L_jj
     const int tid = threadIdx.x;
     const int yc = tid - 32;              // tail column of warps 1..
     const int nchunks = (d + STAGE - 1) / STAGE;
-    double cols[BW][W];                   // lane 0: columns j-1 .. j-BW
+    double pend[W][W];                    // lane 0: columns j .. j+BW
     double yw[BW];                        // tail threads: Y[j-1 .. j-BW]
     bool clamped = false;                 // lane 0: a pivot was clamped
 #pragma unroll
-    for (int k = 0; k < BW; ++k) {
-        yw[k] = 0.0;
+    for (int k = 0; k < BW; ++k) yw[k] = 0.0;
+    if (tid == 0) {
 #pragma unroll
-        for (int o = 0; o < W; ++o) cols[k][o] = 0.0;
+        for (int b = 0; b < W; ++b)
+#pragma unroll
+            for (int o = 0; o < W; ++o)
+                pend[b][o] = b < d ? band[b * W + o] : 0.0;
     }
     for (int s = 0; s <= nchunks; ++s) {
         if (tid < 32 && s < nchunks) {
             const int j0 = s * STAGE;
             const int rows = min(STAGE, d - j0);
+            // band rows j0 + W ..: the columns entering at steps j0 ..
             for (int i = tid; i < rows * W; i += 32)
-                Bs[i] = band[(size_t)j0 * W + i];
+                Bs[i] = j0 + W + i / W < d ? band[(size_t)(j0 + W) * W + i]
+                                           : 0.0;
             __syncwarp();
             if (tid == 0) {
-                double* Mb = Ms + (s & 1) * STAGE * BW;
-                double* Rbb = Rb + (s & 1) * STAGE;
+                // this chunk's buffers, and the next chunk's multipliers
+                double* M0 = Ms + (s % 3) * STAGE * BW;
+                double* M1 = Ms + ((s + 1) % 3) * STAGE * BW;
+                double* Rbb = Rb + (s % 3) * STAGE;
                 for (int i = 0; i < rows; ++i) {
                     const int j = j0 + i;
-                    double p = Bs[i * W];
-#pragma unroll
-                    for (int t = 1; t <= BW; ++t)
-                        if (t <= j) p -= cols[t - 1][t] * cols[t - 1][t];
+                    const double p = pend[0][0];
                     clamped |= p < PIVOT_FLOOR;
                     const double pv = clamp_pivot(p);
-                    const double rs = 1.0 / sqrt(pv);
+                    const double rs = __drcp_rn(sqrt(pv));   // = 1 / sqrt
                     double e[W];
                     e[0] = clip(pv * rs, L_CAP);
 #pragma unroll
-                    for (int o = 1; o <= BW; ++o) {
-                        double acc = Bs[i * W + o];
+                    for (int o = 1; o <= BW; ++o)
+                        e[o] = clip(j + o < d ? pend[0][o] * rs : 0.0, L_CAP);
 #pragma unroll
-                        for (int t = 1; t + o <= BW; ++t)
-                            if (t <= j)
-                                acc -= cols[t - 1][o + t] * cols[t - 1][t];
-                        e[o] = clip(j + o < d ? acc * rs : 0.0, L_CAP);
-                    }
+                    for (int b = 1; b <= BW; ++b)
 #pragma unroll
-                    for (int t = 1; t <= BW; ++t)
-                        Mb[i * BW + t - 1] = cols[t - 1][t];
+                        for (int o = 0; o + b <= BW; ++o)
+                            pend[b][o] = pend[b][o] - e[b + o] * e[b];
 #pragma unroll
                     for (int o = 0; o < W; ++o) L[(size_t)j * W + o] = e[o];
-                    Rbb[i] = rs;
                     rinv[j] = rs;
                     piv[j] = pv;
+                    if (q) {
+                        Rbb[i] = rs;
 #pragma unroll
-                    for (int k = BW - 1; k > 0; --k)
+                        for (int t = 1; t <= BW; ++t) {
+                            if (i + t < STAGE)
+                                M0[(i + t) * BW + t - 1] = e[t];
+                            else
+                                M1[(i + t - STAGE) * BW + t - 1] = e[t];
+                        }
+                    }
 #pragma unroll
-                        for (int o = 0; o < W; ++o) cols[k][o] = cols[k - 1][o];
+                    for (int b = 0; b < BW; ++b)
 #pragma unroll
-                    for (int o = 0; o < W; ++o) cols[0][o] = e[o];
+                        for (int o = 0; o < W; ++o) pend[b][o] = pend[b + 1][o];
+#pragma unroll
+                    for (int o = 0; o < W; ++o) pend[BW][o] = Bs[i * W + o];
                 }
             }
         }
         if (yc >= 0 && yc < q && s >= 1) {
             const int j0 = (s - 1) * STAGE;
             const int rows = min(STAGE, d - j0);
-            const double* Mb = Ms + ((s - 1) & 1) * STAGE * BW;
-            const double* Rbb = Rb + ((s - 1) & 1) * STAGE;
+            const double* Mb = Ms + ((s - 1) % 3) * STAGE * BW;
+            const double* Rbb = Rb + ((s - 1) % 3) * STAGE;
+#pragma unroll 4
             for (int i = 0; i < rows; ++i) {
                 const int j = j0 + i;
                 double acc = C[(size_t)j * q + yc];
 #pragma unroll
-                for (int t = 1; t <= BW; ++t)
+                for (int t = BW; t >= 1; --t)
                     if (t <= j) acc -= yw[t - 1] * Mb[i * BW + t - 1];
                 const double v = clip(acc * Rbb[i], Y_CAP);
 #pragma unroll
@@ -272,232 +294,28 @@ __device__ __forceinline__ void factor_small(const double* __restrict__ band,
 }
 
 template <int BW>
-__global__ void band_factor_small(const double* __restrict__ band,
-                                  const double* __restrict__ C,
-                                  double* __restrict__ L,
-                                  double* __restrict__ rinv,
-                                  double* __restrict__ Y,
-                                  double* __restrict__ piv,
-                                  double* __restrict__ hld,
-                                  int* __restrict__ flag, int d, int q) {
+__global__ void __launch_bounds__(32 + MAX_TAIL_SMALL)
+band_factor_small(const double* __restrict__ band,
+                  const double* __restrict__ C, double* __restrict__ L,
+                  double* __restrict__ rinv, double* __restrict__ Y,
+                  double* __restrict__ piv, double* __restrict__ hld,
+                  int* __restrict__ flag, int d, int q) {
     extern __shared__ double sm[];
     factor_small<BW>(band, C, L, rinv, Y, piv, hld, flag, d, q, sm);
 }
 
 // K8: block r factors system r; no tail (q = 0: C and Y are never read)
 template <int BW>
-__global__ void band_factor_batched_small(const double* __restrict__ bands,
-                                          double* __restrict__ L,
-                                          double* __restrict__ rinv,
-                                          double* __restrict__ piv,
-                                          double* __restrict__ hld,
-                                          int* __restrict__ flag, int d) {
+__global__ void __launch_bounds__(32)
+band_factor_batched_small(const double* __restrict__ bands,
+                          double* __restrict__ L, double* __restrict__ rinv,
+                          double* __restrict__ piv, double* __restrict__ hld,
+                          int* __restrict__ flag, int d) {
     extern __shared__ double sm[];
     const size_t r = blockIdx.x;
     const size_t ob = r * d * (BW + 1), od = r * d;
     factor_small<BW>(bands + ob, nullptr, L + ob, rinv + od, nullptr,
                      piv + od, hld + r, flag + r, d, 0, sm);
-}
-
-// --------------------------------------------------- K1, generic bw --
-// Threads [0, W) compute the band entries L[j+o, j], threads [W, W+q)
-// the tail row Y[j, c]; every thread computes the pivot itself.
-__device__ __forceinline__ void factor_columns(
-        const double* __restrict__ band, const double* __restrict__ C,
-        double* __restrict__ L, double* __restrict__ rinv,
-        double* __restrict__ Y, double* __restrict__ piv,
-        double* __restrict__ hld, int* __restrict__ flag, int d, int bw,
-        int q, double* sm) {
-    const int W = bw + 1;
-    double* Lw = sm;                  // [W][W] ring: last W columns of L
-    double* Yw = Lw + W * W;          // [W][q] ring: last W rows of Y
-    double* Bs = Yw + W * q;          // [STAGE][W] staged band rows
-    double* Cs = Bs + STAGE * W;      // [STAGE][q] staged tail rows
-    const int tid = threadIdx.x;
-    const int nt = blockDim.x;
-    const int yc = tid - W;           // tail column of this thread
-    int slot = 0;                     // ring slot of column j
-    bool clamped = false;             // thread 0: a pivot was clamped
-
-    for (int j = 0; j < d; ++j) {
-        const int jr = j % STAGE;
-        if (jr == 0) {
-            const int rows = min(STAGE, d - j);
-            for (int i = tid; i < rows * W; i += nt)
-                Bs[i] = band[(size_t)j * W + i];
-            for (int i = tid; i < rows * q; i += nt)
-                Cs[i] = C[(size_t)j * q + i];
-            __syncthreads();
-        }
-        const int nprev = min(j, bw);
-        double p = Bs[jr * W];
-        for (int t = 1, s = ring_dec(slot, W); t <= nprev;
-             ++t, s = ring_dec(s, W)) {
-            const double m = Lw[s * W + t];
-            p -= m * m;
-        }
-        const double pv = clamp_pivot(p);
-        const double rs = 1.0 / sqrt(pv);
-
-        if (tid < W) {
-            const int o = tid;
-            double v = 0.0;
-            if (j + o < d) {
-                if (o == 0) {
-                    v = pv * rs;
-                } else {
-                    double acc = Bs[jr * W + o];
-                    for (int t = 1, s = ring_dec(slot, W);
-                         t <= nprev && o + t <= bw;
-                         ++t, s = ring_dec(s, W))
-                        acc -= Lw[s * W + o + t] * Lw[s * W + t];
-                    v = acc * rs;
-                }
-            }
-            v = clip(v, L_CAP);
-            Lw[slot * W + o] = v;
-            L[(size_t)j * W + o] = v;
-        } else if (yc < q) {
-            double acc = Cs[jr * q + yc];
-            for (int t = 1, s = ring_dec(slot, W); t <= nprev;
-                 ++t, s = ring_dec(s, W))
-                acc -= Yw[s * q + yc] * Lw[s * W + t];
-            const double v = clip(acc * rs, Y_CAP);
-            Yw[slot * q + yc] = v;
-            Y[(size_t)j * q + yc] = v;
-        }
-        if (tid == 0) {
-            rinv[j] = rs;
-            piv[j] = pv;
-            clamped |= p < PIVOT_FLOOR;
-        }
-        slot = ring_inc(slot, W);
-        __syncthreads();
-    }
-    if (tid == 0) flag[0] = clamped;
-    half_logdet(piv, hld, d);
-}
-
-__global__ void band_factor_kernel(const double* __restrict__ band,
-                                   const double* __restrict__ C,
-                                   double* __restrict__ L,
-                                   double* __restrict__ rinv,
-                                   double* __restrict__ Y,
-                                   double* __restrict__ piv,
-                                   double* __restrict__ hld,
-                                   int* __restrict__ flag,
-                                   int d, int bw, int q) {
-    extern __shared__ double sm[];
-    factor_columns(band, C, L, rinv, Y, piv, hld, flag, d, bw, q, sm);
-}
-
-__global__ void band_factor_batched_kernel(const double* __restrict__ bands,
-                                           double* __restrict__ L,
-                                           double* __restrict__ rinv,
-                                           double* __restrict__ piv,
-                                           double* __restrict__ hld,
-                                           int* __restrict__ flag,
-                                           int d, int bw) {
-    extern __shared__ double sm[];
-    const size_t r = blockIdx.x;
-    const size_t ob = r * d * (bw + 1), od = r * d;
-    factor_columns(bands + ob, nullptr, L + ob, rinv + od, nullptr,
-                   piv + od, hld + r, flag + r, d, bw, 0, sm);
-}
-
-// ------------------------------------- K1's tail solve (K2 with a cap) --
-// Y = L^{-1} C for the tail columns K1's block does not hold, each column
-// as K1 computes it: its products subtracted nearest-first (K1's order)
-// and |Y| capped at Y_CAP. One thread per column; the block stages STAGE
-// rows of the multipliers, 1/L_jj and its right-hand sides at a time.
-// bw <= SMALL_BW keeps the last BW solution values in registers, a wider
-// band a shared-memory ring.
-template <int BW>
-__global__ void band_tail_small(const double* __restrict__ L,
-                                const double* __restrict__ rinv,
-                                const double* __restrict__ B,
-                                double* __restrict__ X, int d, int r) {
-    extern __shared__ double sm[];
-    constexpr int W = BW + 1;
-    const int nt = blockDim.x;
-    const int tx = threadIdx.x;
-    const int c = blockIdx.x * nt + tx;
-    double* Ls = sm;                  // [STAGE][BW]: L[j, j-t] at t-1
-    double* Rs = Ls + STAGE * BW;     // [STAGE] 1/L_jj
-    double* Bs = Rs + STAGE;          // [STAGE][nt] right-hand sides
-    double w[BW];                     // X[j-1 .. j-BW]
-#pragma unroll
-    for (int k = 0; k < BW; ++k) w[k] = 0.0;
-    for (int j0 = 0; j0 < d; j0 += STAGE) {
-        const int rows = min(STAGE, d - j0);
-        __syncthreads();
-        for (int i = tx; i < rows * BW; i += nt) {
-            const int j = j0 + i / BW, t = i % BW + 1;
-            Ls[i] = j - t >= 0 ? L[(size_t)(j - t) * W + t] : 0.0;
-        }
-        for (int i = tx; i < rows; i += nt) Rs[i] = rinv[j0 + i];
-        if (c < r)
-            for (int i = 0; i < rows; ++i)
-                Bs[i * nt + tx] = B[(size_t)(j0 + i) * r + c];
-        __syncthreads();
-        if (c >= r) continue;
-#pragma unroll 4
-        for (int i = 0; i < rows; ++i) {
-            const int j = j0 + i;
-            double acc = Bs[i * nt + tx];
-#pragma unroll
-            for (int t = 1; t <= BW; ++t)
-                if (t <= j) acc -= w[t - 1] * Ls[i * BW + t - 1];
-            const double v = clip(acc * Rs[i], Y_CAP);
-#pragma unroll
-            for (int k = BW - 1; k > 0; --k) w[k] = w[k - 1];
-            w[0] = v;
-            X[(size_t)j * r + c] = v;
-        }
-    }
-}
-
-__global__ void band_tail_kernel(const double* __restrict__ L,
-                                 const double* __restrict__ rinv,
-                                 const double* __restrict__ B,
-                                 double* __restrict__ X,
-                                 int d, int bw, int r) {
-    extern __shared__ double sm[];
-    const int W = bw + 1;
-    const int nt = blockDim.x;
-    const int tx = threadIdx.x;
-    const int c = blockIdx.x * nt + tx;
-    double* Ls = sm;                  // [STAGE][bw]: L[j, j-t] at t-1
-    double* Rs = Ls + STAGE * bw;     // [STAGE] 1/L_jj
-    double* Bs = Rs + STAGE;          // [STAGE][nt] right-hand sides
-    double* win = Bs + STAGE * nt;    // [W][nt] last W solution rows
-    int slot = 0;
-    for (int j0 = 0; j0 < d; j0 += STAGE) {
-        const int rows = min(STAGE, d - j0);
-        __syncthreads();
-        for (int i = tx; i < rows * bw; i += nt) {
-            const int j = j0 + i / bw, t = i % bw + 1;
-            Ls[i] = j - t >= 0 ? L[(size_t)(j - t) * W + t] : 0.0;
-        }
-        for (int i = tx; i < rows; i += nt) Rs[i] = rinv[j0 + i];
-        if (c < r)
-            for (int i = 0; i < rows; ++i)
-                Bs[i * nt + tx] = B[(size_t)(j0 + i) * r + c];
-        __syncthreads();
-        if (c >= r) continue;
-        for (int i = 0; i < rows; ++i) {
-            const int j = j0 + i;
-            double acc = Bs[i * nt + tx];
-            const int nprev = min(j, bw);
-            for (int t = 1, s = ring_dec(slot, W); t <= nprev;
-                 ++t, s = ring_dec(s, W))
-                acc -= win[s * nt + tx] * Ls[i * bw + t - 1];
-            const double v = clip(acc * Rs[i], Y_CAP);
-            win[slot * nt + tx] = v;
-            X[(size_t)j * r + c] = v;
-            slot = ring_inc(slot, W);
-        }
-    }
 }
 
 
@@ -632,7 +450,7 @@ __device__ __forceinline__ void stage_rows(const double* __restrict__ L,
                (jb + WS_TILE - r0) * W, tid, nth);
 }
 
-template <int NS, bool BWD, int MAXW>
+template <int NS, bool BWD, int MAXW, bool CAP>
 __global__ void __launch_bounds__(32 * MAXW)
 band_solve_warp(const double* __restrict__ L,
                 const double* __restrict__ rinv,
@@ -702,7 +520,8 @@ band_solve_warp(const double* __restrict__ L,
                 // u. No branch in a tile: the steps form one block the
                 // compiler schedules across
                 const bool own = lane == u;
-                const double x = __shfl_sync(FULL, acc[t % NS] * rc, u);
+                double x = __shfl_sync(FULL, acc[t % NS] * rc, u);
+                if (CAP) x = clip(x, Y_CAP);    // K1's tail: |Y| <= 1e8
                 xs = own ? x : xs;
                 acc[t % NS] = own ? bc : acc[t % NS];   // 32k+u+P enters
 #pragma unroll
@@ -827,7 +646,7 @@ band_bwd_far(const double* __restrict__ L, const double* __restrict__ rinv,
     cp_async_wait<0>();
 }
 
-template <int BW>
+template <int BW, bool CAP>
 __global__ void __launch_bounds__(RHS_THREADS)
 band_fwd_far(const double* __restrict__ L, const double* __restrict__ rinv,
              const double* __restrict__ B, double* __restrict__ X, int d,
@@ -894,7 +713,7 @@ band_fwd_far(const double* __restrict__ L, const double* __restrict__ rinv,
 #pragma unroll
             for (int t = BW; t >= 1; --t)
                 acc -= Ls[(i + BW - t) * W + t] * w[t - 1];
-            const double v = acc * Rs[i];
+            const double v = CAP ? clip(acc * Rs[i], Y_CAP) : acc * Rs[i];
 #pragma unroll
             for (int t = BW - 1; t > 0; --t) w[t] = w[t - 1];
             w[0] = v;
@@ -902,6 +721,332 @@ band_fwd_far(const double* __restrict__ L, const double* __restrict__ rinv,
         }
     }
     cp_async_wait<0>();
+}
+
+// --------------------------------------------- K1, K8, bw > SMALL_BW --
+// A right-looking factor with its warps specialized. Warp 0 (the chain)
+// holds column j, final, and column j+1, short of step j's products only,
+// in registers (lane o % 32 holds offset o). At step j it forms 1/L_jj and
+// column j of L, l_o = A[j+o, j] / L_jj, publishes them in shared memory,
+// and takes step j's products itself from the next two columns: l_{o+1}
+// l_1 from column j+1 (now final: pivot j+1 is one product after step j)
+// and l_{o+2} l_2 from column j+2, read from the window (the multipliers
+// by shuffles). The chain from one pivot to the next is a sqrt, a
+// reciprocal, two multiplies and a subtract. Warps 1..nb (the bulk)
+// subtract step j's other products, l_a l_b from entry (j+a, j+b) for 3
+// <= b <= a <= bw, in the window of pending columns, a ring of bw + 65
+// columns in shared memory; a table lists those entries column by column,
+// the bulk threads share it out, and each issues a batch of loads before
+// any of its stores. Every entry so takes its products in step order,
+// farthest-first, each rounded before it is subtracted. One named barrier
+// a step couples the chain and the bulk: at step j the chain passes it
+// once step j's multipliers are written, the bulk once it has finished
+// step j-1; so the bulk's step j runs beside the chain's sqrt of step
+// j+1, the chain reads column j+2 only after every product of the steps
+// before j is in it, and two vectors of multipliers suffice. Every
+// FG_TILE steps the block meets at __syncthreads, by which the bulk has
+// staged the raw band rows the next tile brings into the window
+// (cp.async). The tail warps (one per column of Y, at most FG_TAIL) run a
+// tile behind, off the barriers: they copy the tile's rows of L and
+// 1/L_jj, which the chain wrote to device memory, and solve L Y = C
+// right-looking as K2's warp kernel does: lane o % 32 holds row j+o's
+// running sum, step j forms Y[j] = sum / L_jj (capped at |Y| <= 1e8) and
+// subtracts L[j+o, j] Y[j] from row j+o, so each row takes its products
+// farthest-first. K8 runs the same code for system blockIdx.x, with no
+// tail.
+constexpr int FG_TILE = 32;          // steps between the block's barriers
+constexpr int FG_TAIL = 4;           // tail columns a block computes
+constexpr int FG_MAX_BULK = 6;       // bulk warps a block may have
+constexpr int FG_BATCH = 8;          // entries a bulk thread loads at once
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// 1 / sqrt(pv) as the plain versions form it, 1.0 / torch.sqrt(pv): both
+// steps correctly rounded, so rcp.rn of the root equals the division
+__device__ __forceinline__ double rsqrt_rn(double pv) {
+    return __drcp_rn(sqrt(pv));
+}
+
+// columns in the window's ring, and entries (b, a), 3 <= b <= a <= bw,
+// in the bulk's table
+__host__ __device__ inline int fg_ring(int bw) { return bw + 1 + 2 * FG_TILE; }
+__host__ __device__ inline int fg_entries(int bw) {
+    return (bw - 2) * (bw - 1) / 2;
+}
+
+// shared memory of factor_wide in bytes: the ring, the multiplier vectors,
+// the table (2 bytes an entry) and, with a tail, a tile of rows of L and
+// their 1/L_jj
+size_t fg_bytes(int bw, bool tail) {
+    const size_t W = bw + 1;
+    size_t n = (size_t)fg_ring(bw) * W + 2 * W + (fg_entries(bw) + 3) / 4;
+    if (tail) n += FG_TILE * (W + 1);
+    return n * sizeof(double);
+}
+
+// shared-memory load and store the compiler keeps in program order among
+// themselves: a batch's loads go out together, ahead of its stores
+__device__ __forceinline__ double lds_ordered(unsigned addr) {
+    double v;
+    asm volatile("ld.shared.f64 %0, [%1];\n" : "=d"(v) : "r"(addr));
+    return v;
+}
+
+__device__ __forceinline__ void sts_ordered(unsigned addr, double v) {
+    asm volatile("st.shared.f64 [%0], %1;\n" :: "r"(addr), "d"(v));
+}
+
+// Step j's products l_a l_b for the entries e = bt, bt + nbt, ... of the
+// table (3 <= b <= a <= bw); the window's column j sits at sjW. A batch's
+// FG_BATCH loads are issued together, before any of its stores.
+__device__ __forceinline__ void fg_bulk_step(double* S, const double* lvb,
+                                             const unsigned short* tab,
+                                             int T3, int bw, int sjW, int RW,
+                                             int bt, int nbt) {
+    const unsigned s0 = smem_addr(S);
+    for (int e0 = bt; e0 < T3; e0 += FG_BATCH * nbt) {
+        unsigned ad[FG_BATCH];
+        int ia[FG_BATCH], ib[FG_BATCH];
+        double x[FG_BATCH];
+#pragma unroll
+        for (int u = 0; u < FG_BATCH; ++u) {
+            const int t = tab[min(e0 + u * nbt, T3 - 1)];
+            ib[u] = t >> 7;
+            ia[u] = t & 127;
+            const int o = sjW + ib[u] * bw + ia[u];
+            ad[u] = s0 + 8u * (unsigned)(o >= RW ? o - RW : o);
+        }
+#pragma unroll
+        for (int u = 0; u < FG_BATCH; ++u) x[u] = lds_ordered(ad[u]);
+#pragma unroll
+        for (int u = 0; u < FG_BATCH; ++u)
+            x[u] = x[u] - lvb[ia[u]] * lvb[ib[u]];
+#pragma unroll
+        for (int u = 0; u < FG_BATCH; ++u)
+            if (e0 + u * nbt < T3) sts_ordered(ad[u], x[u]);
+    }
+}
+
+template <int NSL>
+__device__ __forceinline__ void factor_wide(
+        const double* __restrict__ band, const double* __restrict__ C,
+        double* __restrict__ L, double* __restrict__ rinv,
+        double* __restrict__ Y, double* __restrict__ piv,
+        double* __restrict__ hld, int* __restrict__ flag, int d, int bw,
+        int qf, int nb, double* sm) {
+    constexpr unsigned FULL = 0xffffffffu;
+    const int W = bw + 1, R = fg_ring(bw), RW = R * W, T3 = fg_entries(bw);
+    double* S = sm;                          // [R][W] the window's columns
+    double* lv = S + (size_t)RW;             // [2][W] multipliers
+    unsigned short* tab = reinterpret_cast<unsigned short*>(lv + 2 * W);
+    double* Ls = lv + 2 * W + (T3 + 3) / 4;  // tail: [FG_TILE][W] rows of L
+    double* Rs = Ls + FG_TILE * W;           // [FG_TILE] their 1/L_jj
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int ntiles = (d + FG_TILE - 1) / FG_TILE;
+    const int n1 = 32 + 32 * nb;             // threads at the step barrier
+
+    // the columns tile 0 reads (column c in slot c), and the table:
+    // entry (b, a) as b << 7 | a, for b = 3 .. bw, a = b .. bw
+    const int c1 = min(d, FG_TILE + bw);
+    for (int e = tid; e < c1 * W; e += nt) S[e] = band[e];
+    for (int b = 3 + tid; b <= bw; b += nt) {
+        const int n = b - 3;
+        const int start = n * (bw - 2) - n * (n - 1) / 2;
+        for (int a = b; a <= bw; ++a)
+            tab[start + a - b] = (unsigned short)((b << 7) | a);
+    }
+    __syncthreads();
+
+    if (warp == 0) {
+        // v[k]: offset lane + 32 k of column j, final; p, v1, v2 its
+        // offsets 0, 1, 2 (every lane). vn[k]: column j+1, short of step
+        // j's products only; pn its offset 0 (every lane). sj: column j's
+        // ring slot
+        double v[NSL], vn[NSL], l[NSL];
+        bool clamped = false;
+        int sj = 0, lb = 0;
+#pragma unroll
+        for (int k = 0; k < NSL; ++k) {
+            const int o = lane + 32 * k;
+            v[k] = o <= bw ? S[o] : 0.0;
+            vn[k] = o <= bw ? S[W + o] : 0.0;
+        }
+        double p = S[0], v1 = S[1], v2 = S[2], pn = S[W];
+        for (int s = 0; s <= ntiles; ++s) {
+            const int jend = min(d, (s + 1) * FG_TILE);
+            for (int j = s * FG_TILE; j < jend; ++j) {
+                clamped |= p < PIVOT_FLOOR;
+                const double pv = clamp_pivot(p);
+                const double rs = rsqrt_rn(pv);
+                double* lvb = lv + lb * W;
+#pragma unroll
+                for (int k = 0; k < NSL; ++k) {
+                    const int o = lane + 32 * k;
+                    const double x = o == 0 ? pv : v[k];
+                    l[k] = clip(j + o < d ? x * rs : 0.0, L_CAP);
+                    if (o <= bw) {
+                        lvb[o] = l[k];
+                        L[(size_t)j * W + o] = l[k];
+                    }
+                }
+                const double l1 = clip(j + 1 < d ? v1 * rs : 0.0, L_CAP);
+                const double l2 = clip(j + 2 < d ? v2 * rs : 0.0, L_CAP);
+                if (lane == 0) {
+                    rinv[j] = rs;
+                    piv[j] = pv;
+                }
+                // step j's vector out; the bulk has finished step j-1, so
+                // column j+2 holds every product of the steps before j
+                bar_sync(1, n1);
+                int s2 = sj + 2;
+                if (s2 >= R) s2 -= R;
+                const double* S2 = S + (size_t)s2 * W;
+                double w[NSL];
+#pragma unroll
+                for (int k = 0; k < NSL; ++k) {
+                    const int o = lane + 32 * k;
+                    w[k] = o <= bw ? S2[o] : 0.0;
+                }
+                p = pn - l1 * l1;                 // pivot j+1
+#pragma unroll
+                for (int k = 0; k < NSL; ++k) {
+                    // l_{o+1} and l_{o+2}: the next lanes', past lane 31
+                    // the next slot's first
+                    const int o = lane + 32 * k;
+                    const double a1 = __shfl_sync(FULL, l[k], (lane + 1) & 31);
+                    const double b1 =
+                        k + 1 < NSL ? __shfl_sync(FULL, l[k + 1], 0) : 0.0;
+                    const double a2 = __shfl_sync(FULL, l[k], (lane + 2) & 31);
+                    const double b2 = k + 1 < NSL
+                        ? __shfl_sync(FULL, l[k + 1], (lane + 2) & 31) : 0.0;
+                    const double m1 = lane == 31 ? b1 : a1;
+                    const double m2 = lane >= 30 ? b2 : a2;
+                    // column j+1 takes step j's l_{o+1} l_1, column j+2
+                    // its l_{o+2} l_2
+                    v[k] = o < bw ? vn[k] - m1 * l1 : vn[k];
+                    vn[k] = o + 1 < bw ? w[k] - m2 * l2 : w[k];
+                }
+                v1 = __shfl_sync(FULL, v[0], 1);
+                v2 = __shfl_sync(FULL, v[0], 2);
+                pn = __shfl_sync(FULL, vn[0], 0);
+                sj = sj + 1 == R ? 0 : sj + 1;
+                lb ^= 1;
+            }
+            __syncthreads();
+        }
+        if (lane == 0) flag[0] = clamped;
+    } else if (warp <= nb) {
+        // entry (j+a, j+b) sits at sjW + b bw + a in the ring, less RW
+        // past its end (column j+b wrapped)
+        const int bt = tid - 32, nbt = 32 * nb;
+        int sjW = 0, lb = 0;
+        for (int s = 0; s <= ntiles; ++s) {
+            // stage the columns tile s+1 brings into the window
+            const int c0 = (s + 1) * FG_TILE + bw;
+            const int ce = min(d, c0 + FG_TILE);
+            if (c0 < ce) {
+                const int s0 = c0 % R, n0 = min(ce - c0, R - s0);
+                copy_async(S + (size_t)s0 * W, band + (size_t)c0 * W, n0 * W,
+                           bt, nbt);
+                if (n0 < ce - c0)
+                    copy_async(S, band + (size_t)(c0 + n0) * W,
+                               (ce - c0 - n0) * W, bt, nbt);
+            }
+            cp_async_commit();
+            const int jend = min(d, (s + 1) * FG_TILE);
+            for (int j = s * FG_TILE; j < jend; ++j) {
+                bar_sync(1, n1);                  // step j's vector
+                fg_bulk_step(S, lv + lb * W, tab, T3, bw, sjW, RW, bt, nbt);
+                sjW += W;
+                if (sjW == RW) sjW = 0;
+                lb ^= 1;
+            }
+            cp_async_wait<0>();
+            __syncthreads();
+        }
+    } else {
+        // tail column c, a tile behind the factor: lane t, slot k holds
+        // row j + o's running sum (o = t + 32 k), less the products of
+        // the rows before j
+        const int c = warp - 1 - nb;
+        const int tt = tid - 32 * (1 + nb), ntt = 32 * qf;
+        double acc[NSL];
+#pragma unroll
+        for (int k = 0; k < NSL; ++k) {
+            const int o = lane + 32 * k;
+            acc[k] = o <= bw && o < d ? C[(size_t)o * qf + c] : 0.0;
+        }
+        for (int s = 0; s <= ntiles; ++s) {
+            if (s >= 1) {
+                const int j0 = (s - 1) * FG_TILE;
+                const int rows = min(FG_TILE, d - j0);
+                // the tile's rows of L and 1/L_jj (device memory, from L2)
+                // and the rows of C entering the window at its steps
+                for (int e = tt; e < rows * W; e += ntt)
+                    Ls[e] = __ldcg(L + (size_t)j0 * W + e);
+                for (int e = tt; e < rows; e += ntt)
+                    Rs[e] = __ldcg(rinv + j0 + e);
+                const int re = j0 + W + lane;
+                const double cin = re < d ? C[(size_t)re * qf + c] : 0.0;
+                bar_sync(3, ntt);
+                for (int i = 0; i < rows; ++i) {
+                    const double x =
+                        clip(__shfl_sync(FULL, acc[0] * Rs[i], 0), Y_CAP);
+                    if (lane == 0) Y[(size_t)(j0 + i) * qf + c] = x;
+                    const double enter = __shfl_sync(FULL, cin, i);
+                    const double* Li = Ls + i * W;
+#pragma unroll
+                    for (int k = 0; k < NSL; ++k) {
+                        const int o = lane + 32 * k;
+                        if (o >= 1 && o <= bw) acc[k] = acc[k] - Li[o] * x;
+                    }
+                    // the window moves a row: offset o takes o + 1's sum,
+                    // and row j + W enters at offset bw
+#pragma unroll
+                    for (int k = 0; k < NSL; ++k) {
+                        const double nx =
+                            __shfl_sync(FULL, acc[k], (lane + 1) & 31);
+                        const double ny = k + 1 < NSL
+                            ? __shfl_sync(FULL, acc[k + 1], 0) : 0.0;
+                        const int o = lane + 32 * k;
+                        acc[k] = o == bw ? enter : (lane == 31 ? ny : nx);
+                    }
+                }
+                bar_sync(3, ntt);                 // Ls, Rs restaged next
+            }
+            __syncthreads();
+        }
+    }
+    half_logdet(piv, hld, d);
+}
+
+template <int NSL>
+__global__ void __launch_bounds__(32 * (1 + FG_MAX_BULK + FG_TAIL), 1)
+band_factor_wide(const double* __restrict__ band,
+                 const double* __restrict__ C, double* __restrict__ L,
+                 double* __restrict__ rinv, double* __restrict__ Y,
+                 double* __restrict__ piv, double* __restrict__ hld,
+                 int* __restrict__ flag, int d, int bw, int qf, int nb) {
+    extern __shared__ double sm[];
+    factor_wide<NSL>(band, C, L, rinv, Y, piv, hld, flag, d, bw, qf, nb,
+                     sm);
+}
+
+// K8: block r factors system r
+template <int NSL>
+__global__ void __launch_bounds__(32 * (1 + FG_MAX_BULK + FG_TAIL), 1)
+band_factor_wide_batched(const double* __restrict__ bands,
+                         double* __restrict__ L, double* __restrict__ rinv,
+                         double* __restrict__ piv, double* __restrict__ hld,
+                         int* __restrict__ flag, int d, int bw, int nb) {
+    extern __shared__ double sm[];
+    const size_t r = blockIdx.x;
+    const size_t ob = r * d * (bw + 1), od = r * d;
+    factor_wide<NSL>(bands + ob, nullptr, L + ob, rinv + od, nullptr,
+                     piv + od, hld + r, flag + r, d, bw, 0, nb, sm);
 }
 
 // ---------------------------------------------------------------- K4 --
@@ -981,23 +1126,9 @@ __global__ void band_takahashi_batched_kernel(const double* __restrict__ L,
     takahashi_rows(L + ob, rinv + r * d, Z + ob, d, bw, sm);
 }
 
-// shared memory of K1's tail-solve kernels with nt threads a block:
-// staged multipliers (STAGE x lw), 1/L_jj, right-hand sides, and the
-// generic kernel's ring
-size_t rhs_smem(int lw, int ring_w, int nt = RHS_THREADS) {
-    return sizeof(double) * ((size_t)STAGE * lw + STAGE
-                             + (size_t)STAGE * nt + (size_t)ring_w * nt);
-}
-
 size_t factor_small_smem(int bw) {
     return sizeof(double) *
-        ((size_t)STAGE * (bw + 1) + 2 * (size_t)STAGE * bw + 2 * STAGE);
-}
-
-size_t factor_smem(int bw, int q) {
-    const int W = bw + 1;
-    return sizeof(double) *
-        ((size_t)W * W + (size_t)W * q + (size_t)STAGE * (W + q));
+        ((size_t)STAGE * (bw + 1) + 3 * (size_t)STAGE * bw + 3 * STAGE);
 }
 
 size_t takahashi_smem(int bw) {
@@ -1034,18 +1165,8 @@ int rhs_threads(int r) {
 
 int warp_block(int r) { return r <= 4 ? 1 : WS_WARPS; }
 
-template <int BW>
-cudaError_t launch_tail_small(const double* L, const double* rinv,
-                              const double* C, double* Y, int d, int r,
-                              cudaStream_t st) {
-    const int grid = (r + RHS_THREADS - 1) / RHS_THREADS;
-    band_tail_small<BW><<<grid, RHS_THREADS, rhs_smem(BW, 0), st>>>(
-        L, rinv, C, Y, d, r);
-    return cudaGetLastError();
-}
-
 // bw <= SMALL_BW: two tiles of ft rows, ft * nt = 4096 (ft <= 128)
-template <int BW>
+template <int BW, bool CAP>
 cudaError_t launch_far(bool bwd, const double* L, const double* rinv,
                        const double* B, double* X, int nsys, int d, int r,
                        cudaStream_t st) {
@@ -1061,16 +1182,14 @@ cudaError_t launch_far(bool bwd, const double* L, const double* rinv,
     } else {
         const size_t smem = 2 * sizeof(double) *
             ((size_t)(ft + BW) * (BW + 1) + (size_t)ft * (1 + nt));
-        e = allow_smem(band_fwd_far<BW>, smem);
+        e = allow_smem(band_fwd_far<BW, CAP>, smem);
         if (e != cudaSuccess) return e;
-        band_fwd_far<BW><<<grid, nt, smem, st>>>(L, rinv, B, X, d, r, ft);
+        band_fwd_far<BW, CAP><<<grid, nt, smem, st>>>(L, rinv, B, X, d, r,
+                                                      ft);
     }
     return cudaGetLastError();
 }
 
-using TailLaunch = cudaError_t (*)(const double*, const double*,
-                                   const double*, double*, int, int,
-                                   cudaStream_t);
 using FarLaunch = cudaError_t (*)(bool, const double*, const double*,
                                   const double*, double*, int, int, int,
                                   cudaStream_t);
@@ -1080,14 +1199,16 @@ using FactorLaunch = cudaError_t (*)(const double*, const double*, double*,
 using FactorBatchedLaunch = cudaError_t (*)(const double*, double*, double*,
                                             double*, double*, int*, int, int,
                                             cudaStream_t);
-// the register-window instantiations, indexed by bandwidth
-const TailLaunch kTailSmall[SMALL_BW + 1] = {
-    nullptr, launch_tail_small<1>, launch_tail_small<2>,
-    launch_tail_small<3>, launch_tail_small<4>, launch_tail_small<5>,
-    launch_tail_small<6>, launch_tail_small<7>, launch_tail_small<8>};
+// the register-window instantiations, indexed by bandwidth; kFarCap
+// caps |x| at Y_CAP (K1's tail solve, forward only)
 const FarLaunch kFar[SMALL_BW + 1] = {
-    nullptr, launch_far<1>, launch_far<2>, launch_far<3>, launch_far<4>,
-    launch_far<5>, launch_far<6>, launch_far<7>, launch_far<8>};
+    nullptr, launch_far<1, false>, launch_far<2, false>,
+    launch_far<3, false>, launch_far<4, false>, launch_far<5, false>,
+    launch_far<6, false>, launch_far<7, false>, launch_far<8, false>};
+const FarLaunch kFarCap[SMALL_BW + 1] = {
+    nullptr, launch_far<1, true>, launch_far<2, true>, launch_far<3, true>,
+    launch_far<4, true>, launch_far<5, true>, launch_far<6, true>,
+    launch_far<7, true>, launch_far<8, true>};
 const FactorLaunch kFactorSmall[SMALL_BW + 1] = {
     nullptr, launch_factor_small<1>, launch_factor_small<2>,
     launch_factor_small<3>, launch_factor_small<4>, launch_factor_small<5>,
@@ -1098,63 +1219,101 @@ const FactorBatchedLaunch kFactorBatchedSmall[SMALL_BW + 1] = {
     launch_factor_batched_small<5>, launch_factor_batched_small<6>,
     launch_factor_batched_small<7>, launch_factor_batched_small<8>};
 
-// K1's tail solve: Y = L^{-1} C with K1's order and cap
-cudaError_t launch_tail(const double* L, const double* rinv, const double* C,
-                        double* Y, int d, int bw, int r, cudaStream_t st) {
-    if (bw >= 1 && bw <= SMALL_BW)
-        return kTailSmall[bw](L, rinv, C, Y, d, r, st);
-    const int grid = (r + RHS_THREADS - 1) / RHS_THREADS;
-    const size_t smem = rhs_smem(bw, bw + 1);
-    const cudaError_t e = allow_smem(band_tail_kernel, smem);
-    if (e != cudaSuccess) return e;
-    band_tail_kernel<<<grid, RHS_THREADS, smem, st>>>(L, rinv, C, Y, d, bw,
-                                                      r);
-    return cudaGetLastError();
-}
-
-template <int NS, bool BWD, int MAXW>
+template <int NS, bool BWD, int MAXW, bool CAP>
 cudaError_t launch_solve_warp(const double* L, const double* rinv,
                               const double* B, double* X, int nsys, int d,
                               int bw, int r, int warps, cudaStream_t st) {
     const size_t rows = BWD && NS <= 2 ? WS_ROWS : WS_RING * WS_TILE;
     const size_t smem = sizeof(double) * rows * (size_t)(bw + 1);
-    cudaError_t e = allow_smem(band_solve_warp<NS, BWD, MAXW>, smem);
+    cudaError_t e = allow_smem(band_solve_warp<NS, BWD, MAXW, CAP>, smem);
     if (e != cudaSuccess) return e;
     const dim3 grid((r + warps - 1) / warps, nsys);
-    band_solve_warp<NS, BWD, MAXW><<<grid, 32 * warps, smem, st>>>(
+    band_solve_warp<NS, BWD, MAXW, CAP><<<grid, 32 * warps, smem, st>>>(
         L, rinv, B, X, d, bw, r);
     return cudaGetLastError();
 }
 
 // the warp kernel for bw: one, two or four register slots a lane
-template <bool BWD, int MAXW>
+template <bool BWD, int MAXW, bool CAP = false>
 cudaError_t launch_warp(const double* L, const double* rinv, const double* B,
                         double* X, int nsys, int d, int bw, int r, int warps,
                         cudaStream_t st) {
     if (warps < 1 || warps > MAXW) return cudaErrorInvalidValue;
     if (bw < 32)
-        return launch_solve_warp<1, BWD, MAXW>(L, rinv, B, X, nsys, d, bw,
-                                               r, warps, st);
+        return launch_solve_warp<1, BWD, MAXW, CAP>(L, rinv, B, X, nsys, d,
+                                                    bw, r, warps, st);
     if (bw < 64)
-        return launch_solve_warp<2, BWD, MAXW>(L, rinv, B, X, nsys, d, bw,
-                                               r, warps, st);
+        return launch_solve_warp<2, BWD, MAXW, CAP>(L, rinv, B, X, nsys, d,
+                                                    bw, r, warps, st);
     if (bw < 128)
-        return launch_solve_warp<4, BWD, MAXW>(L, rinv, B, X, nsys, d, bw,
-                                               r, warps, st);
+        return launch_solve_warp<4, BWD, MAXW, CAP>(L, rinv, B, X, nsys, d,
+                                                    bw, r, warps, st);
     return cudaErrorInvalidValue;
 }
 
-// Every solve but K1's tail, in one order (farthest-first): forward (K2,
-// K9) or backward (K3, K5, K10), nsys systems of r right-hand sides,
-// warp_block(r) of them a block of the warp kernel (bw > SMALL_BW)
-template <bool BWD>
+// Every solve, in one order (farthest-first): forward (K2, K9; with CAP
+// K1's tail solve) or backward (K3, K5, K10), nsys systems of r
+// right-hand sides, warp_block(r) of them a block of the warp kernel (bw
+// > SMALL_BW)
+template <bool BWD, bool CAP = false>
 cudaError_t launch_solve(const double* L, const double* rinv,
                          const double* B, double* X, int nsys, int d,
                          int bw, int r, cudaStream_t st) {
     if (bw >= 1 && bw <= SMALL_BW)
-        return kFar[bw](BWD, L, rinv, B, X, nsys, d, r, st);
-    return launch_warp<BWD, WS_WARPS>(L, rinv, B, X, nsys, d, bw, r,
-                                      warp_block(r), st);
+        return (CAP ? kFarCap : kFar)[bw](BWD, L, rinv, B, X, nsys, d, r,
+                                          st);
+    return launch_warp<BWD, WS_WARPS, CAP>(L, rinv, B, X, nsys, d, bw, r,
+                                           warp_block(r), st);
+}
+
+// bulk warps of the wide factor: about six table entries a bulk thread a
+// step, but below bw = 64 at most 3, so that no bulk warp shares the chain
+// warp's scheduler (warp w runs on scheduler w % 4; at bw = 34 three bulk
+// warps timed best of 1-6)
+int fg_bulk(int bw) {
+    const int n = (fg_entries(bw) + 175) / 176;
+    return max(1, min(bw < 64 ? 3 : FG_MAX_BULK, n));
+}
+
+template <int NSL>
+cudaError_t launch_wide_nsl(const double* band, const double* C, double* L,
+                            double* rinv, double* Y, double* piv,
+                            double* hld, int* flag, int nsys, int d, int bw,
+                            int qf, int nb, cudaStream_t st) {
+    const size_t smem = fg_bytes(bw, qf > 0);
+    const int nt = 32 * (1 + nb + qf);
+    cudaError_t e;
+    if (nsys == 0) {
+        e = allow_smem(band_factor_wide<NSL>, smem);
+        if (e != cudaSuccess) return e;
+        band_factor_wide<NSL><<<1, nt, smem, st>>>(band, C, L, rinv, Y, piv,
+                                                   hld, flag, d, bw, qf, nb);
+    } else {
+        e = allow_smem(band_factor_wide_batched<NSL>, smem);
+        if (e != cudaSuccess) return e;
+        band_factor_wide_batched<NSL><<<nsys, nt, smem, st>>>(
+            band, L, rinv, piv, hld, flag, d, bw, nb);
+    }
+    return cudaGetLastError();
+}
+
+// the wide factor (bw > SMALL_BW): one system with qf tail columns (nsys
+// = 0), or nsys systems without (K8); nb bulk warps
+cudaError_t launch_wide(const double* band, const double* C, double* L,
+                        double* rinv, double* Y, double* piv, double* hld,
+                        int* flag, int nsys, int d, int bw, int qf, int nb,
+                        cudaStream_t st) {
+    if (bw <= SMALL_BW || bw > 127 || nb < 1 || nb > FG_MAX_BULK
+        || qf < 0 || qf > FG_TAIL || (nsys > 0 && qf > 0))
+        return cudaErrorInvalidValue;
+    if (bw < 32)
+        return launch_wide_nsl<1>(band, C, L, rinv, Y, piv, hld, flag, nsys,
+                                  d, bw, qf, nb, st);
+    if (bw < 64)
+        return launch_wide_nsl<2>(band, C, L, rinv, Y, piv, hld, flag, nsys,
+                                  d, bw, qf, nb, st);
+    return launch_wide_nsl<4>(band, C, L, rinv, Y, piv, hld, flag, nsys, d,
+                              bw, qf, nb, st);
 }
 
 }  // namespace
@@ -1162,16 +1321,13 @@ cudaError_t launch_solve(const double* L, const double* rinv,
 // ------------------------------------------------------ C interface --
 extern "C" {
 
-// Tail columns K1 computes beside the band in one block: all q up to
-// what one block holds (threads and shared memory); the caller computes
-// the rest with bgt_band_tail_solve on the factor.
+// Tail columns K1 computes beside the band in its block: up to
+// MAX_TAIL_SMALL for bw <= SMALL_BW (a thread each), FG_TAIL for a wider
+// band (a warp each) where their tile of L fits beside the window; the
+// caller computes the rest with bgt_band_tail_solve on the factor.
 int bgt_band_factor_tile(int bw, int q) {
     if (bw >= 1 && bw <= SMALL_BW) return min(q, MAX_TAIL_SMALL);
-    const long W = bw + 1;
-    const long room = (long)(MAX_SMEM / sizeof(double)) - W * W - STAGE * W;
-    long tile = room > 0 ? room / (W + STAGE) : 0;
-    tile = min(tile, (long)MAX_THREADS - W);
-    return (int)max(0L, min((long)q, tile));
+    return fg_bytes(bw, true) <= MAX_SMEM ? min(q, FG_TAIL) : 0;
 }
 
 // flag[0]: 1 where a raw pivot fell under PIVOT_FLOOR and was clamped
@@ -1184,19 +1340,27 @@ int bgt_band_factor(const double* band, const double* C, double* L,
     if (bw >= 1 && bw <= SMALL_BW)
         return (int)kFactorSmall[bw](band, C, L, rinv, Y, piv, hld, flag, d,
                                      q, st);
-    const size_t smem = factor_smem(bw, q);
-    cudaError_t e = allow_smem(band_factor_kernel, smem);
-    if (e != cudaSuccess) return (int)e;
-    band_factor_kernel<<<1, round_threads(bw + 1 + q), smem, st>>>(
-        band, C, L, rinv, Y, piv, hld, flag, d, bw, q);
-    return (int)cudaGetLastError();
+    return (int)launch_wide(band, C, L, rinv, Y, piv, hld, flag, 0, d, bw, q,
+                            fg_bulk(bw), st);
+}
+
+// K1 for bw > SMALL_BW with nb bulk warps (1 .. FG_MAX_BULK), for timing
+// the block shapes side by side
+int bgt_band_factor_bulk(const double* band, const double* C, double* L,
+                         double* rinv, double* Y, double* piv, double* hld,
+                         int* flag, int d, int bw, int q, int nb,
+                         void* stream) {
+    if (q > bgt_band_factor_tile(bw, q)) return (int)cudaErrorInvalidValue;
+    return (int)launch_wide(band, C, L, rinv, Y, piv, hld, flag, 0, d, bw, q,
+                            nb, (cudaStream_t)stream);
 }
 
 // Y = L^{-1} C for the tail columns beyond K1's tile, each column as K1
-// computes it (its order, |Y| <= 1e8)
+// computes it: K2's kernels (farthest-first), |Y| capped at 1e8
 int bgt_band_tail_solve(const double* L, const double* rinv, const double* C,
                         double* Y, int d, int bw, int r, void* stream) {
-    return (int)launch_tail(L, rinv, C, Y, d, bw, r, (cudaStream_t)stream);
+    return (int)launch_solve<false, true>(L, rinv, C, Y, 1, d, bw, r,
+                                          (cudaStream_t)stream);
 }
 
 int bgt_band_fwd_solve(const double* L, const double* rinv, const double* B,
@@ -1252,12 +1416,8 @@ int bgt_band_factor_batched(const double* bands, double* L, double* rinv,
     if (bw >= 1 && bw <= SMALL_BW)
         return (int)kFactorBatchedSmall[bw](bands, L, rinv, piv, hld, flag,
                                             nsys, d, st);
-    const size_t smem = factor_smem(bw, 0);
-    cudaError_t e = allow_smem(band_factor_batched_kernel, smem);
-    if (e != cudaSuccess) return (int)e;
-    band_factor_batched_kernel<<<nsys, round_threads(bw + 1), smem, st>>>(
-        bands, L, rinv, piv, hld, flag, d, bw);
-    return (int)cudaGetLastError();
+    return (int)launch_wide(bands, nullptr, L, rinv, nullptr, piv, hld, flag,
+                            nsys, d, bw, 0, fg_bulk(bw), st);
 }
 
 int bgt_band_fwd_solve_batched(const double* L, const double* rinv,

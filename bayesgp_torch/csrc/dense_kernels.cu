@@ -31,20 +31,23 @@
 // kernel sums in its plain version's order, so the two agree bit for bit.
 //
 // Bound. K6 moves 256 KB and does ~0.7 MFLOP: under 0.1 us at 3.35 TB/s
-// and 34 TFLOP/s. Its real floor is the chain of 128 columns, each a
-// pivot (a sqrt and a divide), a scaled column and a rank-1 update of
-// the trailing block, with two barriers a column: one block on one SM.
+// and 34 TFLOP/s. One block on one SM cannot approach that: its floors are
+// the chain of 128 columns, each a pivot (a sqrt and a divide), a scale
+// and a broadcast (~15-20 us), and its ~350k products and as many
+// subtracts at 64 FP64 lanes a clock, unfused (~6 us).
 // K7 moves the 128 KB block, r columns in and r columns out, and does
 // 128^2 r flops: at r = 2051 ~4.3 MB and 34 MFLOP, ~1.3 us at the
 // memory rate. Its floor is the substitution of one column, 128 steps
 // that each wait on the last.
 //
-// Design. K6: one block of 512 threads holds the block in 128 KB of
+// Design. K6: one block of 8 warps holds the triangle in registers, each
+// warp 16 contiguous columns, and forms them one after another: the chain
+// stays inside one warp but at 7 hand-offs (a flag in shared memory), and
+// the other warps take each published column beside it, with no block
+// barrier (the kernel's comment). It stages the block through 132 KB of
 // dynamic shared memory (above the 48 KB default, so the entry point
-// raises the limit with cudaFuncSetAttribute). For each column every
-// thread recomputes the clamped pivot from shared memory (no barrier
-// for it), the threads scale the column into a shared vector, then a
-// 32 x 16 thread grid updates the lower trailing triangle. K7: a block
+// raises the limit with cudaFuncSetAttribute), to read and write it row
+// by row. K7: a block
 // of SOLVE_WARPS warps stages the lower triangle of L (packed, 66 KB)
 // and the reciprocal pivots into shared memory, then each warp solves
 // one right-hand column by a right-looking substitution (the kernel's
@@ -63,8 +66,6 @@ namespace {
 constexpr int NB = 128;              // block size
 constexpr double PIVOT_FLOOR = 1e-12;
 constexpr double L_CAP = 1e3;
-constexpr int FACTOR_TX = 32;        // K6 thread grid
-constexpr int FACTOR_TY = 16;
 constexpr int SOLVE_WARPS = 8;       // K7 right-hand sides (warps) a block
 constexpr int PACKED = NB * (NB + 1) / 2;
 
@@ -109,52 +110,137 @@ cudaError_t allow_smem(size_t bytes) {
     return e;
 }
 
-// K6: one (NB, NB) block, lower triangle of S in, L out. Column j of L
-// goes to the unused upper triangle of A (row j) and its pivot entry to
-// dg[j], so the writes of column j never touch what the threads read
-// for it (the diagonal and the lower column of A).
-__global__ void __launch_bounds__(FACTOR_TX * FACTOR_TY)
+// K6: one (NB, NB) block, lower triangle of S in, L out, right-looking.
+// The block is read into T (row stride TLD) and then held in registers:
+// warp w owns the 16 contiguous columns k = 16 w + c, and lane l the rows
+// l + 32 m of them, entry (l + 32 m, k) in a[c][m]; the slots under m0 =
+// w / 2 lie above every diagonal the warp owns and are skipped (m0 is a
+// template argument). A warp first takes the products of the columns
+// before its own, column by column as their owners publish them (in step
+// order, as the plain version subtracts them), then forms its own columns
+// one after another: the pivot by a shuffle, 1/sqrt of the clamped pivot,
+// the scale and cap, the column written to row k of T (T ends holding L
+// column by column), a flag released, and the column's products taken
+// from the warp's later columns. So the chain from one column to the next
+// stays inside one warp but at 7 of the 127 steps, and the other warps
+// take the published columns beside it. L is written from T row by row
+// at the end.
+constexpr int K6_WARPS = 8;
+constexpr int K6_COLS = NB / K6_WARPS;   // contiguous columns a warp owns
+constexpr int TLD = NB + 1;              // row stride of T
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ int ld_acquire(const int* f) {
+    int v;
+    asm volatile("ld.acquire.cta.shared.b32 %0, [%1];\n"
+                 : "=r"(v) : "r"(smem_u32(f)) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void st_release(int* f, int v) {
+    asm volatile("st.release.cta.shared.b32 [%0], %1;\n"
+                 :: "r"(smem_u32(f)), "r"(v) : "memory");
+}
+
+// Wait until *f >= v, sleeping between polls so that the waiting warps
+// leave the issue slots to the working ones. A kernel whose flag never
+// comes traps instead of hanging the card
+__device__ __forceinline__ void wait_geq(const int* f, int v) {
+    for (long n = 0; ld_acquire(f) < v; ++n) {
+        if (n > (1L << 26)) __trap();
+        __nanosleep(20);
+    }
+}
+
+template <int M0>
+__device__ __forceinline__ void k6_warp(double* T, int* formed, int w,
+                                        int lane, bool& clamped) {
+    const int k0 = K6_COLS * w;
+    double a[K6_COLS][4];
+#pragma unroll
+    for (int c = 0; c < K6_COLS; ++c)
+#pragma unroll
+        for (int m = M0; m < 4; ++m)
+            a[c][m] = T[(lane + 32 * m) * TLD + k0 + c];
+    // the columns before this warp's: col_j's products l_i l_k
+    for (int j = 0; j < k0; ++j) {
+        wait_geq(formed, j + 1);
+        const double* cj = T + j * TLD;          // column j of L
+        double li[4];
+#pragma unroll
+        for (int m = M0; m < 4; ++m) li[m] = cj[lane + 32 * m];
+#pragma unroll
+        for (int c = 0; c < K6_COLS; ++c) {
+            const double lk = cj[k0 + c];
+#pragma unroll
+            for (int m = M0; m < 4; ++m) a[c][m] = a[c][m] - li[m] * lk;
+        }
+    }
+    // this warp's columns
+#pragma unroll
+    for (int c = 0; c < K6_COLS; ++c) {
+        const int k = k0 + c, mk = k >> 5;
+        double own = a[c][M0];
+#pragma unroll
+        for (int m = M0 + 1; m < 4; ++m) own = mk == m ? a[c][m] : own;
+        const double p = __shfl_sync(0xffffffffu, own, k & 31);
+        clamped |= p < PIVOT_FLOOR;
+        // 1 / sqrt: the reciprocal and the division are both correctly
+        // rounded
+        const double rs = __drcp_rn(sqrt(clamp_pivot(p)));
+        double* ck = T + k * TLD;                // column k of L
+#pragma unroll
+        for (int m = M0; m < 4; ++m) {
+            const int i = lane + 32 * m;
+            a[c][m] = clip(a[c][m] * rs, L_CAP);
+            if (i >= k) ck[i] = a[c][m];
+        }
+        __syncwarp();
+        if (lane == 0) st_release(formed, k + 1);
+#pragma unroll
+        for (int c2 = c + 1; c2 < K6_COLS; ++c2) {
+            const double lk = ck[k0 + c2];
+#pragma unroll
+            for (int m = M0; m < 4; ++m) a[c2][m] = a[c2][m] - a[c][m] * lk;
+        }
+    }
+}
+
+__global__ void __launch_bounds__(32 * K6_WARPS)
 dense_factor_block_kernel(const double* __restrict__ S, int lds,
                           double* __restrict__ L, int ldl,
                           int* __restrict__ flag) {
     extern __shared__ double smem[];
-    double* A = smem;                 // (NB, NB), row-major
-    double* col = smem + NB * NB;     // the scaled column j
-    double* dg = col + NB;            // the diagonal of L
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int tid = ty * FACTOR_TX + tx;
-    const int nt = FACTOR_TX * FACTOR_TY;
-    for (int e = tid; e < NB * NB; e += nt)
-        A[e] = S[(size_t)(e / NB) * lds + (e % NB)];
-    __syncthreads();
-    bool clamped = false;                 // thread 0: a pivot was clamped
-    for (int j = 0; j < NB; ++j) {
-        const double p = A[j * NB + j];
-        clamped |= p < PIVOT_FLOOR;
-        const double rs = 1.0 / sqrt(clamp_pivot(p));
-        for (int i = j + tid; i < NB; i += nt) {
-            const double l = clip(A[i * NB + j] * rs, L_CAP);
-            col[i] = l;
-            if (i == j)
-                dg[j] = l;
-            else
-                A[j * NB + i] = l;
-        }
-        __syncthreads();
-        // trailing update of the lower triangle: A[i, k] -= l_i l_k
-        for (int i = j + 1 + ty; i < NB; i += FACTOR_TY) {
-            const double li = col[i];
-            for (int k = j + 1 + tx; k <= i; k += FACTOR_TX)
-                A[i * NB + k] = A[i * NB + k] - li * col[k];
-        }
-        __syncthreads();
-    }
+    // T: the lower triangle in, row by row; column k of L out, in row k
+    // (at and right of the diagonal, where the input held nothing)
+    double* T = smem;
+    int* formed = reinterpret_cast<int*>(T + NB * TLD);   // columns formed
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const int w = tid >> 5, lane = tid & 31;
+#pragma unroll 8
     for (int e = tid; e < NB * NB; e += nt) {
         const int i = e / NB, k = e % NB;
-        L[(size_t)i * ldl + k] = k < i ? A[k * NB + i] : (k == i ? dg[i]
-                                                                 : 0.0);
+        if (k <= i) T[i * TLD + k] = S[(size_t)i * lds + k];
     }
-    if (tid == 0 && clamped) flag[0] = 1;
+    if (tid == 0) formed[0] = 0;
+    __syncthreads();
+    bool clamped = false;
+    switch (w >> 1) {
+        case 0: k6_warp<0>(T, formed, w, lane, clamped); break;
+        case 1: k6_warp<1>(T, formed, w, lane, clamped); break;
+        case 2: k6_warp<2>(T, formed, w, lane, clamped); break;
+        default: k6_warp<3>(T, formed, w, lane, clamped); break;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int e = tid; e < NB * NB; e += nt) {
+        const int i = e / NB, k = e % NB;
+        L[(size_t)i * ldl + k] = k <= i ? T[k * TLD + i] : 0.0;
+    }
+    if (lane == 0 && clamped) flag[0] = 1;
 }
 
 // Stage the lower triangle of the (NB, NB) block L (row stride ldl)
@@ -260,10 +346,10 @@ extern "C" {
 // factorization share one flag)
 int bgt_dense_factor_block(const double* S, int lds, double* L, int ldl,
                            int* flag, void* stream) {
-    const size_t smem = (size_t)(NB * NB + 2 * NB) * sizeof(double);
+    const size_t smem = (size_t)NB * TLD * sizeof(double) + sizeof(int);
     cudaError_t e = allow_smem<dense_factor_block_kernel>(smem);
     if (e != cudaSuccess) return (int)e;
-    dense_factor_block_kernel<<<1, dim3(FACTOR_TX, FACTOR_TY), smem,
+    dense_factor_block_kernel<<<1, 32 * K6_WARPS, smem,
                                 (cudaStream_t)stream>>>(S, lds, L, ldl, flag);
     return (int)cudaGetLastError();
 }

@@ -80,7 +80,8 @@ def _check_rhs(L, B):
 
 def band_factor_batched_plain(bands):
     """Plain version of band_factor_batched (band_factor_plain's
-    arithmetic on every system at once, without the tail rows)."""
+    arithmetic and farthest-first order on every system at once, without
+    the tail rows)."""
     NR, d, W = bands.shape
     bw = W - 1
     L = torch.zeros_like(bands)
@@ -90,7 +91,7 @@ def band_factor_batched_plain(bands):
     for j in range(d):
         nprev = min(j, bw)
         piv = bands[:, j, 0]
-        for t in range(1, nprev + 1):
+        for t in range(nprev, 0, -1):
             m = L[:, j - t, t]
             piv = piv - m * m
         low = piv < PIVOT_FLOOR
@@ -99,7 +100,7 @@ def band_factor_batched_plain(bands):
         rs = 1.0 / torch.sqrt(pv)
         logdet = logdet + torch.log(pv)
         acc = bands[:, j].clone()
-        for t in range(1, nprev + 1):
+        for t in range(nprev, 0, -1):
             acc[:, 1:W - t] = (acc[:, 1:W - t]
                                - L[:, j - t, 1 + t:] * L[:, j - t, t, None])
         col = acc * rs[:, None]

@@ -34,12 +34,15 @@ and |Y| at 1e8. On a healthy equilibrated system none of them binds;
 the factor reports whether it clamped a pivot, which the half-log-det
 backward reads (band_arrow.py).
 
-Every solve (K2, K3, K5) sums a row's products farthest-first, the x
-farthest from the row first and the nearest last, so that one product
-of a row waits on the row just solved; their plain versions sum in the
-same order. K5 is K3's function on the M columns of the draws, on K3's
-kernels. Only K1's fused tail Y = L^{-1} C keeps its own nearest-first
-order (band_factor_plain).
+Every kernel sums in one order, farthest-first: a solve (K2, K3, K5)
+subtracts a row's products from the x farthest from the row first and
+the nearest last, so that one product of a row waits on the row just
+solved; the factor (K1) subtracts each entry's products from the column
+farthest back first, as a right-looking factor makes them, so that one
+product of a pivot waits on the column just factored, and its tail Y =
+L^{-1} C is K2's solve with the cap on |Y|. The plain versions sum in
+the same order. K5 is K3's function on the M columns of the draws, on
+K3's kernels.
 """
 from __future__ import annotations
 
@@ -136,6 +139,8 @@ def _library():
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.bgt_band_factor.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P]
         lib.bgt_band_factor_tile.argtypes = [I, I]
+        lib.bgt_band_factor_bulk.argtypes = [P, P, P, P, P, P, P, P, I, I, I,
+                                             I, P]
         lib.bgt_band_tail_solve.argtypes = [P, P, P, P, I, I, I, P]
         for name in ("bgt_band_fwd_solve", "bgt_band_bwd_solve",
                      "bgt_band_bwd_multi"):
@@ -150,8 +155,9 @@ def _library():
             getattr(lib, name).argtypes = [P, P, P, P, I, I, I, I, P]
         lib.bgt_band_takahashi_batched.argtypes = [P, P, P, I, I, I, P]
         for name in ("bgt_band_factor", "bgt_band_factor_tile",
-                     "bgt_band_tail_solve", "bgt_band_fwd_solve",
-                     "bgt_band_bwd_solve", "bgt_band_bwd_multi",
+                     "bgt_band_factor_bulk", "bgt_band_tail_solve",
+                     "bgt_band_fwd_solve", "bgt_band_bwd_solve",
+                     "bgt_band_bwd_multi",
                      "bgt_band_bwd_multi_warps",
                      "bgt_band_takahashi", "bgt_band_factor_batched",
                      "bgt_band_fwd_solve_batched",
@@ -262,7 +268,8 @@ def _multipliers(L):
 def band_factor_plain(band, C):
     """Plain version of band_factor (same arithmetic, column by column:
     the products of a column are formed at once, then subtracted in the
-    kernel's order)."""
+    kernels' order, farthest-first: the product from column j - bw
+    first, the one from column j - 1 last)."""
     d, W = band.shape
     bw = W - 1
     L = torch.zeros_like(band)
@@ -286,7 +293,7 @@ def band_factor_plain(band, C):
             S = torch.where(inside[:nprev],
                             P.gather(1, shifted[:nprev]) * m, zero)
             acc = _subtract_in_order(acc, torch.cat(
-                [S, _prev_rows(Y, j, nprev) * m], dim=1))
+                [S, _prev_rows(Y, j, nprev) * m], dim=1).flip(0))
         piv = acc[0]
         low = piv < PIVOT_FLOOR
         lows.append(low)
@@ -312,10 +319,10 @@ def band_factor(band, C):
     tensor: whether a raw pivot fell under PIVOT_FLOOR and was clamped.
 
     On a card K1 computes the first columns of Y beside the band, as many
-    as one block holds (bgt_band_factor_tile); the others are one launch
-    of K1's tail solve on the new factor (bgt_band_tail_solve: K1's
-    order and cap on |Y|, counted as a band_factor launch), which
-    computes each column as K1 would."""
+    as its block takes (bgt_band_factor_tile); the others are one launch
+    of K1's tail solve on the new factor (bgt_band_tail_solve: K2's
+    kernels with the cap on |Y|, counted as a band_factor launch), which
+    computes each column as K1 does."""
     _check(band, "band", 2)
     _check(C, "C", 2)
     _check_bw(band.shape[1])
@@ -347,6 +354,32 @@ def band_factor(band, C):
                 _ptr(L), _ptr(rinv), _ptr(C1), _ptr(Y1), d, W - 1,
                 q - tile, _stream(band))
     return L, rinv, torch.cat([Y0, Y1], dim=1), hld, flag != 0
+
+
+def band_factor_bulk(band, C, bulk):
+    """band_factor on a card (bw > SMALL_BW, C no wider than the block's
+    tail) with `bulk` warps subtracting the products off the pivot chain
+    (1 .. FG_MAX_BULK in csrc/band_kernels.cu), the block shapes timed side
+    by side in chip_smoke.py. Not on any fit's path, and not counted."""
+    _check(band, "band", 2)
+    _check(C, "C", 2)
+    if not _on_cuda(band, C):
+        raise ValueError("band_factor_bulk times the CUDA kernel: its "
+                         "tensors must lie on a card")
+    d, W = band.shape
+    L = torch.empty_like(band)
+    rinv = band.new_empty(d)
+    Y = torch.empty_like(C)
+    piv = band.new_empty(d)
+    hld = band.new_empty(())
+    flag = torch.empty((), dtype=torch.int32, device=band.device)
+    with _device(band):
+        err = _library().bgt_band_factor_bulk(
+            _ptr(band), _ptr(C), _ptr(L), _ptr(rinv), _ptr(Y), _ptr(piv),
+            _ptr(hld), _ptr(flag), d, W - 1, C.shape[1], bulk, _stream(band))
+    if err != 0:
+        raise RuntimeError(f"band_factor_bulk: CUDA error {err} at launch")
+    return L, rinv, Y, hld, flag != 0
 
 
 # -- K2: forward solve ------------------------------------------------------

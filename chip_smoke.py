@@ -70,9 +70,12 @@ Phases (any failure raises and the script exits non-zero):
      MERGED_GATE_THETA.
 Phase 1 builds csrc/band_kernels.cu (K1-K5, K8-K11) and
 csrc/dense_kernels.cu (K6, K7) with two nvcc processes started together;
-phase 2 also checks K2, K3 and K5 bit for bit with their one
+phase 2 also checks K1 bit for bit with its one (farthest-first) plain
+version at bw = 1..8, 12, 34, 70 and 125, with tails inside its block
+and past it (K1's tail solve, a column at the |Y| cap), and the wide K1
+at every number of bulk warps, K2, K3 and K5 bit for bit with their one
 (farthest-first) plain version at every register-window width (bw =
-1..8), K9/K10 system by system against K2/K3/K5 bit for bit at bw = 3,
+1..8), K8-K11 system by system against K1-K5 bit for bit at bw = 3,
 12, 34 and 70, K6/K7 against their plain versions on healthy and
 indefinite blocks, K7 bit for bit at r = 1, 2, 32, 33, 128, 1000 and 2051
 right-hand sides both ways and timed against solve_triangular at r = 1
@@ -83,7 +86,8 @@ the shapes the JAX package sends to its chunked kernels K1c-K5c
 included, against their plain versions (on the whole system, on the
 first PREFIX columns at PREFIX_SHAPES) and against the band, with K5 at
 the merged shape timed with 1, 4, 8 and 16 draw columns a block of its
-warp kernel.
+warp kernel and K1 there with 1-6 bulk warps and with its tail solved
+after the factor.
 A line near the end is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -348,6 +352,7 @@ def phase_kernels(bk, dev):
     check_close("K1 indefinite L", Lb, Lbp)
     check_close("K1 indefinite Y", Yb, Ybp)
     check_close("K1 indefinite hld", hb, hbp)
+    check_factor_orders(bk, dev)
 
     Ld = torch.zeros((D, D), dtype=torch.float64, device=dev)
     for o in range(W):
@@ -420,6 +425,42 @@ def phase_kernels(bk, dev):
             f"{r['bound_ms']:.6f} ms ({r['bound_by']}), "
             f"{r['ms'] / D * 1e3:.3f} us per column")
     return rows
+
+
+def check_factor_orders(bk, dev):
+    """K1 bit for bit with its one (farthest-first) plain version at every
+    register-window width (bw = 1..8, d = D) and at bw = 12, 34, 70 and
+    125 (d = 600), with a tail inside the block and one past it (K1's
+    tail solve, with a column at the |Y| cap); the wide kernel with every
+    number of bulk warps bit for bit with the wrapper's choice."""
+    cases = [(D, bw, q) for bw in range(1, bk.SMALL_BW + 1)
+             for q in (Q, 300)]
+    cases += [(600, bw, q) for bw in (12, 34, 70, 125) for q in (3, 40)]
+    for d, bw, q in cases:
+        _, band, C, _ = spd_problem(dev, d, bw, q, seed=30 + bw + q)
+        C[:, -1] *= 1e10                 # a column that meets the cap
+        tag = f"K1 d={d} bw={bw} q={q}"
+        got = bk.band_factor(band, C)
+        want = bk.band_factor_plain(band, C)
+        for name, a, b in zip(("L", "rinv", "Y", "hld", "clamped"), got,
+                              want):
+            check_equal(f"{tag} {name}", a, b)
+        require(bool((got[2].abs() == bk.Y_CAP).any()),
+                f"{tag}: a tail entry met the cap")
+        if bw > bk.SMALL_BW:
+            tile = bk._library().bgt_band_factor_tile(bw, q)
+            C0 = C[:, :tile].contiguous()
+            for nb in range(1, 7):
+                L, rinv, Y, hld, _ = bk.band_factor_bulk(band, C0, nb)
+                check_equal(f"{tag} with {nb} bulk warps", torch.cat(
+                    [L.reshape(-1), rinv, Y.reshape(-1), hld.reshape(1)]),
+                    torch.cat([got[0].reshape(-1), got[1],
+                               got[2][:, :tile].reshape(-1),
+                               got[3].reshape(1)]))
+    log(f"  K1 bit for bit with its farthest-first plain version at bw = "
+        f"1..{bk.SMALL_BW} (d={D}, q = {Q} and 300) and bw = 12, 34, 70, "
+        f"125 (d=600, q = 3 and 40), the tail past the block on K2's "
+        f"kernels with the cap, and the wide kernel at 1-6 bulk warps: ok")
 
 
 def check_solve_orders(bk, dev, g):
@@ -998,6 +1039,9 @@ def phase_dense_kernels(cd, dev):
         plain_ms=cuda_ms(lambda: cd.dense_factor_block_plain(blk), n=3,
                          warm=1),
         library_ms=cuda_ms(lambda: torch.linalg.cholesky(blk)),
+        # the kernel alone, from a CUDA graph (the wrapper's host time is
+        # near the kernel's; torch.linalg.cholesky does not capture)
+        device_ms=graph_ms(lambda: cd.dense_factor_block(blk)),
         # the lower triangle read, the whole factor written; B^3/3 flops
         nbytes=f8 * (tri + nb * nb), flops=nb ** 3 / 3)}
     for r in DENSE_R:
@@ -1041,6 +1085,8 @@ def phase_dense_kernels(cd, dev):
         bound_ms_r1=bound(f8 * (tri + 2 * nb), nb * nb)[0],
         plain_ms_r1=cuda_ms(lambda: cd.dense_solve_lower_plain(Lkk, rhs[1]),
                             n=3, warm=1))
+    log(f"  K6 device time (CUDA graph): "
+        f"{rows['dense_factor_block']['device_ms']:.4f} ms")
     for name, row in rows.items():
         row["bound_ms"], row["bound_by"] = bound(row["nbytes"], row["flops"])
         log(f"  {name}: kernel {row['ms']:.4f} ms, plain "
@@ -1499,6 +1545,39 @@ def library_times(dev, band, C, L, B, Z):
     return out
 
 
+def time_k1_variants(bk, band, C):
+    """K1 (bw > SMALL_BW) with 1, 2, 3, 4 and 6 bulk warps, and with its tail
+    computed by K1's tail solve after the factor instead of by the block's
+    tail warp, timed side by side, each bit for bit with the wrapper's
+    choice: {variant: ms}."""
+    L, rinv, Y, hld, _ = bk.band_factor(band, C)
+    out = {}
+    for nb in (1, 2, 3, 4, 6):
+        check_equal(f"K1 with {nb} bulk warps", bk.band_factor_bulk(
+            band, C, nb)[0], L)
+        out[f"bulk {nb}"] = cuda_ms(lambda: bk.band_factor_bulk(band, C, nb),
+                                    n=5)
+    none = C[:, :0]
+    lib = bk._library()
+    d, W = band.shape
+
+    def unfused():
+        L1, r1, _, _, _ = bk.band_factor(band, none)
+        Y1 = torch.empty_like(C)
+        err = lib.bgt_band_tail_solve(bk._ptr(L1), bk._ptr(r1), bk._ptr(C),
+                                      bk._ptr(Y1), d, W - 1, C.shape[1],
+                                      bk._stream(C))
+        require(err == 0, "K1's tail solve launches")
+        return Y1
+    check_equal("K1's tail by the tail solve", unfused(), Y)
+    out["tail solve after the factor"] = cuda_ms(unfused, n=5)
+    tile = lib.bgt_band_factor_tile(W - 1, C.shape[1])
+    log(f"  K1 at {tuple(band.shape)} + {C.shape[1]} tail columns, ms by "
+        f"variant: {out} (the wrapper takes {tile} tail columns in the "
+        "block)")
+    return out
+
+
 def time_k5_blocks(bk, L, rinv, Z):
     """K5 (bw > SMALL_BW) with 1, 4, 8 and 16 draw columns a block of the
     warp kernel, timed side by side, each bit for bit with the wrapper's
@@ -1536,6 +1615,8 @@ def phase_chunked_kernels(bk, dev):
             lib = library_times(dev, band, C, L, B, Z)
             rows["band_bwd_multi"]["ms_by_warps"] = time_k5_blocks(
                 bk, L, rinv, Z)
+            rows["band_factor"]["ms_by_variant"] = time_k1_variants(
+                bk, band, C)
             del band, C, L, rinv, B, Z
         del arrays
     for name, r in merged.items():
@@ -1852,21 +1933,26 @@ def phase_tail_cell(tbg, bk, cd, dev):
     log("== phase 16: tail-term cell: bench_scattered_iid's engine='banded' "
         "q=512 point (n=5e4, IWP3 k=500, 512 scattered levels in a 515-wide "
         "dense tail, Poisson, AGHQ k=3, M=500)")
+    from bayesgp_torch.fast import banded
     bk.reset_launches()
     cd.reset_launches()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fit = tbg.model_fit(IID_FORMULA.format(p=3, k=500),
-                        data=scattered_data(q=512), family="Poisson",
-                        engine="banded", aghq_k=3, M=500, seed=0, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with CountCalls(banded.BandedBackend, "value_and_grad",
+                    "laplace_eval_full", "newton_step") as calls:
+        t0 = time.perf_counter()
+        fit = tbg.model_fit(IID_FORMULA.format(p=3, k=500),
+                            data=scattered_data(q=512), family="Poisson",
+                            engine="banded", aghq_k=3, M=500, seed=0,
+                            device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     m, be = fit.mod, fit.mod.backend
     launches = {**bk.launches, **cd.launches}
     log(f"  {wall:.3f} s (wall): {type(be).__name__} d={be.d} bw="
         f"{be.Wl - 1} q={be.q} (dense tail route: {be.engine.dense_tail}); "
         f"mode {np.round(m.mode, 6).tolist()}, lognormconst "
-        f"{m.lognormconst:.6f}; launches {launches}")
+        f"{m.lognormconst:.6f}; launches {launches}; Laplace evaluations "
+        f"and Newton steps {calls.calls}")
     require(be.q == 515 and be.engine.dense_tail, "the 515-wide dense tail")
     require(np.all(np.isfinite(m.mode)) and np.all(np.isfinite(fit.samps))
             and fit.samps.shape == (499 + 512 + 3, 500),
@@ -1972,6 +2058,8 @@ def main():
                 row["ms_r3_by_shape"] = r["ms_r3_by_shape"]
             if "ms_by_warps" in r:      # K5c by warps a block
                 row["ms_by_warps"] = r["ms_by_warps"]
+            if "ms_by_variant" in r:    # K1c by bulk warps and tail route
+                row["ms_by_variant"] = r["ms_by_variant"]
         kernels.append(row)
     log(f"headline fit wall s: first {wall1:.3f}, second {wall2:.3f}")
     log(f"replicate fits, wall s per fit: {per_fit}")

@@ -13,7 +13,10 @@ width) and at bw = 12 and 40 (d = 200, past SMALL_BW): K2, K3 and K5
 sum a row's products farthest-first at every width, each equal bit for
 bit to a numpy loop in that order (and not to one in the other order),
 and against scipy.linalg.solve_triangular on the dense factor at rtol
-1e-12 (a well-conditioned band, f64 both sides).
+1e-12 (a well-conditioned band, f64 both sides). The factor's order:
+the plain K1 at bw = 3 and 12 (with its tail Y) and the plain K8 at
+bw = 3, each equal bit for bit to a numpy right-looking factor, which
+subtracts every entry's products farthest-first.
 
 Three cases, on purpose (test_torch_band_kernels.py, docstring).
 """
@@ -24,6 +27,7 @@ import scipy.linalg
 import torch
 
 from bayesgp_tpu.linalg import band_kernels as jbk
+from bayesgp_torch.linalg import band_batched as bb
 from bayesgp_torch.linalg import band_kernels as bk
 
 from test_torch_band_kernels import (R, _dense_band, _jax_factor,
@@ -83,7 +87,53 @@ def _loop_solve(L, rinv, B, trans, farthest):
     return X
 
 
+def _loop_factor(band, C):
+    """numpy right-looking guarded band factor: step j scales column j,
+    then subtracts l_a l_b from every entry of the columns after it and
+    Y_j l_t from the tail rows below it, so each entry takes its
+    products farthest-first."""
+    d, W = band.shape
+    A, Yacc = band.copy(), C.copy()
+    L, Y, rinv = np.zeros_like(A), np.zeros_like(C), np.zeros(d)
+    for j in range(d):
+        p = A[j, 0]
+        pv = max(abs(p), bk.PIVOT_FLOOR) if p < bk.PIVOT_FLOOR else p
+        # torch's CPU sqrt, as the plain versions take it (it is not
+        # always numpy's correctly rounded one)
+        rs = float(1.0 / torch.sqrt(torch.tensor(pv, dtype=torch.float64)))
+        col = A[j] * rs
+        col[0] = pv * rs
+        col[max(d - j, 0):] = 0.0
+        L[j] = np.clip(col, -bk.L_CAP, bk.L_CAP)
+        Y[j] = np.clip(Yacc[j] * rs, -bk.Y_CAP, bk.Y_CAP)
+        rinv[j] = rs
+        for b in range(1, min(W, d - j)):
+            A[j + b, :W - b] -= L[j, b:] * L[j, b]
+            Yacc[j + b] -= Y[j] * L[j, b]
+    return L, rinv, Y
+
+
+def _check_factor_orders():
+    for bw in (3, 12):
+        rng = np.random.default_rng(50 + bw)
+        d = 120
+        _, band = _spd_band(rng, d, bw)
+        band = band.T.copy()
+        C = rng.normal(size=(d, 2))
+        got = bk.band_factor_plain(torch.tensor(band), torch.tensor(C))
+        for g, w in zip(got, _loop_factor(band, C)):
+            np.testing.assert_array_equal(g.numpy(), w)
+        if bw == 3:
+            bands = np.stack([band, _spd_band(rng, d, bw)[1].T])
+            Lb, rb, _, _ = bb.band_factor_batched_plain(torch.tensor(bands))
+            for r in range(2):
+                Lw, rw, _ = _loop_factor(bands[r], np.zeros((d, 0)))
+                np.testing.assert_array_equal(Lb[r].numpy(), Lw)
+                np.testing.assert_array_equal(rb[r].numpy(), rw)
+
+
 def _check_solve_orders():
+    _check_factor_orders()
     for bw in (3, 12, 40):
         rng = np.random.default_rng(bw)
         d = 200
@@ -110,8 +160,8 @@ def _check_solve_orders():
 
 
 def test_wrappers_check_arguments():
-    """Wrappers refuse what the kernels do not take; and the plain solves'
-    summation orders (_check_solve_orders)."""
+    """Wrappers refuse what the kernels do not take; and the plain
+    factor's and solves' summation orders (_check_solve_orders)."""
     _check_solve_orders()
     band = torch.ones((8, 4), dtype=torch.float64)
     with pytest.raises(TypeError):
