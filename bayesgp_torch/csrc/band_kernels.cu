@@ -28,7 +28,9 @@
 // K3 band_bwd_solve replaces band_kernels.py:bwd_solve_fn (L^T X = Y); it
 //                   loops backwards, where the TPU kernel flipped rows.
 // K4 band_takahashi replaces band_kernels.py:takahashi_fn (band of
-//                   H^{-1} from L, the backward Takahashi recurrence).
+//                   H^{-1} from L, the backward Takahashi recurrence,
+//                   each sum farthest-first: two multiply-subtracts from
+//                   one row's diagonal to the next).
 // K5 band_bwd_multi replaces band_kernels.py:bwd_multi_fn (L^T X = Z for
 //                   the posterior draws, one column per draw): K3's
 //                   function, on K3's kernels.
@@ -89,8 +91,18 @@
 //       at each system's offset.
 //   K1's tail columns past its block (bgt_band_tail_solve) run on K2's
 //       kernels with |Y| capped at 1e8 (their template flag CAP).
-// K4 runs once per gradient and keeps the generic form: threads across
-// the bw entries of a row of H^{-1}, two barriers a row.
+//   K4 sums every entry farthest-first and takes Z[j, 1]'s product last
+//       in Z[j, 0], so only Z[j, 1] reads the diagonal the row before
+//       left. Up to SMALL_BW one thread keeps the symmetric window of
+//       H^{-1} in registers, the row loop unrolled over BW rows so that
+//       the window's shift is renaming, with tiles of L copied by
+//       cp.async a tile ahead (band_takahashi_small); wider bands run a
+//       skewed pipeline, entry (j, o) final o/2 steps ahead of row j's
+//       diagonal, each step consuming only the entries the step before
+//       made final: thread o (one to four warps) keeps its ~bw/2 entries
+//       in progress in registers, one barrier a step
+//       (band_takahashi_wide). K11 runs K4's code at each system's
+//       offset.
 //
 // Every shape the JAX package sends to its kernels runs here, those of
 // its chunked kernels (K1c-K5c, band_kernels.py:466-634) included:
@@ -132,14 +144,6 @@ __device__ __forceinline__ double clip(double x, double cap) {
 
 __device__ __forceinline__ double clamp_pivot(double p) {
     return p < PIVOT_FLOOR ? fmax(fabs(p), PIVOT_FLOOR) : p;
-}
-
-// ring positions: one step back / forward in a ring of W slots
-__device__ __forceinline__ int ring_dec(int s, int W) {
-    return s == 0 ? W - 1 : s - 1;
-}
-__device__ __forceinline__ int ring_inc(int s, int W) {
-    return s + 1 == W ? 0 : s + 1;
 }
 
 int round_threads(int n) {
@@ -1050,90 +1054,389 @@ band_factor_wide_batched(const double* __restrict__ bands,
 }
 
 // ---------------------------------------------------------------- K4 --
-// Z[j, o] = (H^{-1})[j+o, j], by the backward recurrence
-//   Z[j, o] = -sum_t (L[j+t, j] rinv_j) S(j+t, j+o)      (o = 1..bw)
-//   Z[j, 0] = rinv_j^2 - sum_t (L[j+t, j] rinv_j) Z[j, t]
-// with S the symmetric selected inverse of rows j+1..j+bw (in the ring).
-__device__ __forceinline__ void takahashi_rows(
-        const double* __restrict__ L, const double* __restrict__ rinv,
-        double* __restrict__ Z, int d, int bw, double* sm) {
-    const int W = bw + 1;
-    double* Zw = sm;                  // [W][W] ring: rows j..j+bw of Z
-    double* Ls = Zw + W * W;          // [STAGE][W] staged rows of L
-    double* Rs = Ls + STAGE * W;      // [STAGE] 1/L_jj
-    const int tid = threadIdx.x;
-    const int nt = blockDim.x;
-    int slot = 0;                     // ring slot of row j; j+k at slot+k
-    for (int j1 = d; j1 > 0; j1 -= STAGE) {
-        const int j0 = max(0, j1 - STAGE);
-        const int rows = j1 - j0;
-        __syncthreads();
-        for (int i = tid; i < rows * W; i += nt)
-            Ls[i] = L[(size_t)j0 * W + i];
-        for (int i = tid; i < rows; i += nt) Rs[i] = rinv[j0 + i];
-        __syncthreads();
-        for (int i = rows - 1; i >= 0; --i) {
-            const int j = j0 + i;
-            const double rs = Rs[i];
-            const double* Lj = Ls + i * W;
-            const int o = tid + 1;
-            if (o <= bw) {
-                double acc = 0.0;
-                if (j + o < d) {
-                    int sa = ring_inc(slot, W);        // slot of row j+t
-                    int sb = slot + o;                 // slot of row j+o
-                    if (sb >= W) sb -= W;
-                    for (int t = 1; t <= bw && j + t < d;
-                         ++t, sa = ring_inc(sa, W)) {
-                        const double s = t >= o ? Zw[sb * W + (t - o)]
-                                                : Zw[sa * W + (o - t)];
-                        acc += (Lj[t] * rs) * s;
+// Z[j, o] = (H^{-1})[j+o, j] by the backward recurrence, with S the
+// symmetric selected inverse of the rows after j and l_t = L[j+t, j] /
+// L_jj (0 where j + t >= d):
+//   Z[j, o] = 0 - l_bw S(j+bw, j+o) - ... - l_1 S(j+1, j+o)   (o = 1..bw)
+//   Z[j, 0] = 1/L_jj^2 - l_bw Z[j, bw] - ... - l_1 Z[j, 1]
+// Every sum runs farthest-first, t = bw down to 1. For o >= 2 the
+// products before the last read rows j+2.. and the off-diagonal entries
+// of row j+1; only Z[j, 1]'s last product reads row j+1's diagonal, and
+// Z[j, 0] takes Z[j, 1]'s product last. So the chain from one row's
+// diagonal to the next is two multiply-subtracts: Z[j+1, 0] -> Z[j, 1]
+// -> Z[j, 0].
+//
+// bw <= SMALL_BW (band_takahashi_small): lane 0 of one warp holds the
+// window S(x, y), x >= y, of rows j+1..j+BW in registers, win[x % BW][y %
+// BW]; the row loop is unrolled over BW rows, so every index is a
+// constant, row j's entries replace those of row j+BW in place, and the
+// window's shift is register renaming. Tiles of rows of L and 1/L_jj
+// arrive by cp.async one tile ahead, rows of Z leave through a shared
+// tile in coalesced stores by the whole warp; no barrier a row.
+constexpr int TK_ROWS = 64;          // least rows a tile of the small kernel
+
+template <int BW>
+__global__ void __launch_bounds__(32)
+band_takahashi_small(const double* __restrict__ L,
+                     const double* __restrict__ rinv,
+                     double* __restrict__ Z, int d) {
+    constexpr int W = BW + 1;
+    constexpr int G = BW > 0 ? BW : 1;               // rows a step
+    constexpr int TT = G * ((TK_ROWS + G - 1) / G);  // rows a tile
+    constexpr int PER = TT * W + TT;     // a staged tile: L, then 1/L_jj
+    extern __shared__ double sm[];
+    double* Zs = sm + 2 * PER;           // [TT][W] the tile's rows of Z
+    const int lane = threadIdx.x;
+    const size_t sys = blockIdx.x;       // K11: system blockIdx.x
+    L += sys * d * W;
+    rinv += sys * d;
+    Z += sys * d * W;
+    // tile k: rows [k TT, min(d, (k+1) TT)), in buffer k & 1
+    auto stage = [&](int k) {
+        if (k >= 0) {
+            double* Ls = sm + (k & 1) * PER;
+            const int j0 = k * TT, rows = min(TT, d - j0);
+            copy_async(Ls, L + (size_t)j0 * W, rows * W, lane, 32);
+            copy_async(Ls + TT * W, rinv + j0, rows, lane, 32);
+        }
+        cp_async_commit();
+    };
+    double win[G][G];
+#pragma unroll
+    for (int a = 0; a < G; ++a)
+#pragma unroll
+        for (int b = 0; b < G; ++b) win[a][b] = 0.0;
+    const int ntiles = (d + TT - 1) / TT;
+    // steps of G rows from the first whole step past d; rows past d are
+    // zero rows (1/L_jj = 0), as the plain version's start
+    const int jend = (d + G - 1) / G * G;
+    stage(ntiles - 1);
+    for (int k = ntiles - 1; k >= 0; --k) {
+        cp_async_wait<0>();              // tile k, this lane's copies
+        __syncwarp();                    // every lane's; Zs stored
+        stage(k - 1);
+        const int j0 = k * TT;
+        if (lane == 0) {
+            const double* Ls = sm + (k & 1) * PER;
+            const double* Rs = Ls + TT * W;
+            for (int g = min(j0 + TT, jend) - G; g >= j0; g -= G) {
+#pragma unroll
+                for (int u = G - 1; u >= 0; --u) {
+                    const int j = g + u;         // j % G == u
+                    const int i = j - j0;
+                    const double r = j < d ? Rs[i] : 0.0;
+                    double l[W], z[W];
+#pragma unroll
+                    for (int t = 1; t <= BW; ++t)
+                        l[t] = j + t < d ? Ls[i * W + t] * r : 0.0;
+#pragma unroll
+                    for (int o = 1; o <= BW; ++o) {
+                        double acc = 0.0;
+#pragma unroll
+                        for (int t = BW; t >= 1; --t) {
+                            const int hi = t > o ? t : o, lo = t > o ? o : t;
+                            acc = acc - l[t] * win[(u + hi) % G][(u + lo) % G];
+                        }
+                        z[o] = acc;
+                    }
+                    double z0 = r * r;
+#pragma unroll
+                    for (int t = BW; t >= 1; --t) z0 = z0 - l[t] * z[t];
+                    z[0] = z0;
+                    // S(j+c, j) replaces S(j+BW, ...), which leaves
+#pragma unroll
+                    for (int c = 0; c < BW; ++c) win[(u + c) % G][u] = z[c];
+                    if (j < d) {
+#pragma unroll
+                        for (int o = 0; o < W; ++o) Zs[i * W + o] = z[o];
                     }
                 }
-                Zw[slot * W + o] = -acc;
-                Z[(size_t)j * W + o] = -acc;
             }
-            __syncthreads();
-            if (tid == 0) {
-                double zjj = rs * rs;
-                for (int t = 1; t <= bw && j + t < d; ++t)
-                    zjj -= (Lj[t] * rs) * Zw[slot * W + t];
-                Zw[slot * W] = zjj;
-                Z[(size_t)j * W] = zjj;
+        }
+        __syncwarp();
+        const int rows = min(TT, d - j0);
+        for (int e = lane; e < rows * W; e += 32)
+            Z[(size_t)j0 * W + e] = Zs[e];
+    }
+    cp_async_wait<0>();
+}
+
+// bw > SMALL_BW (band_takahashi_wide): a skewed pipeline. Entry (i, k)
+// of row i = d - 1 - P is final at step P - k/2 (k/2 rounded down), and
+// its product t is subtracted at the step after its operand S(i+t, i+k),
+// the entry of offset |t - k|, became final: every operand was made final
+// in the step before, and each entry takes its products farthest-first,
+// two a step over about bw/2 steps. Thread k owns offset k (warp 0 lanes
+// 0..30 offsets 0..30; warp w >= 1 lane l offset 32 w - 1 + l, so that
+// offsets 2m+1 and 2m+2 share a warp) and keeps its entries in progress
+// in registers, acc[lag] for NL lags (NL = (bw + 1) / 2 rounded up to a
+// multiple of 4; the lags past (bw + 1) / 2 hold 0, or 1/L_ii^2 for k = 0,
+// and take products of zero multipliers, which change no bit). At each
+// step lag lag takes products t = 2 lag + 3 - (k & 1) and t - 1: the
+// multipliers l_t of its row from a ring of multiplier rows, the operands
+// from F, the entries made final in the step before, one per offset,
+// mirrored (F[-a] = F[a]) so that every address is a per-thread base and
+// a constant, and double-buffered by step parity. The entry at lag 0 is
+// then final, but for even k, whose last product (t = 1) takes the entry
+// thread k - 1 (k = 0: thread 1) made final in this step, by a shuffle. So
+// the chain a step is an odd offset's two multiply-subtracts, a shuffle
+// and an even offset's multiply-subtract, then one barrier (a __syncwarp
+// up to bw = 30); the ~bw products of a thread a step belong to NL
+// independent entries, in straight-line code. Multiplier rows (entry t of
+// the row at position p: l_t, 0 past d and past bw; entry 0: 1/L_ii^2)
+// are formed a tile at a time (TS = 16 or 32 positions) a tile ahead,
+// from rows of L staged by
+// cp.async another tile ahead. Steps start OFF positions early on zero
+// rows (rows past d), so the first real entries meet the same schedule as
+// every other. The entries made final leave through a shared tile, written
+// to Z at the tile's end: no store to device memory inside a step.
+constexpr int TW_GROUP = 4;          // lags whose operands load together
+constexpr int TW_MAX_WARPS = 4;      // offsets 0..125
+
+// the lags a thread keeps for bw: (bw + 1) / 2 rounded up to 4
+__host__ __device__ inline int tw_lags(int bw) {
+    return 4 * (((bw + 1) / 2 + 3) / 4);
+}
+// multiplier-row pitch for NL lags: >= 2 NL + 3 (products up to t = 2 NL
+// + 2 read zeros) and 2 mod 16, so that the 16 rows a half-warp reads lie
+// in distinct banks
+__host__ __device__ constexpr int tw_pitch(int nl) {
+    return 16 * ((2 * nl + 16) / 16) + 2;
+}
+// positions a tile of multiplier rows (and steps between the block's
+// barriers), as long as the tiles fit beside the ring
+__host__ __device__ constexpr int tw_tile(int nl) { return nl <= 32 ? 32 : 16; }
+// tiles of multiplier rows ahead of a step's: a step reads positions up
+// to 2 NL ahead; the ring holds one more
+__host__ __device__ constexpr int tw_ahead(int nl) {
+    return (2 * nl + tw_tile(nl) - 1) / tw_tile(nl);
+}
+__host__ __device__ inline int tw_warps(int bw) {
+    return bw <= 30 ? 1 : 1 + (bw - 30 + 31) / 32;
+}
+
+// shared memory of the wide kernel in bytes: the ring of multiplier rows,
+// the two mirrored F, a staged tile of rows of L and their 1/L_jj, and a
+// tile of the entries made final (TS steps, bw + 1 offsets)
+size_t takahashi_wide_bytes(int bw) {
+    const int nl = tw_lags(bw);
+    const size_t PL = tw_pitch(nl), TS = tw_tile(nl);
+    const size_t RL = (tw_ahead(nl) + 1) * TS;
+    return sizeof(double) * (RL * PL + 2 * (2 * PL + 1) + TS * (2 * bw + 3));
+}
+
+template <int NL>
+__device__ __forceinline__ void takahashi_wide(
+        const double* __restrict__ L, const double* __restrict__ rinv,
+        double* __restrict__ Z, int d, int bw, double* sm) {
+    constexpr unsigned FULL = 0xffffffffu;
+    constexpr int PL = tw_pitch(NL), K = tw_ahead(NL), TS = tw_tile(NL);
+    constexpr int RL = (K + 1) * TS, OFF = K * TS;            // >= 2 NL
+    constexpr int FL = 2 * PL + 1;           // a mirrored F, centre PL
+    const int W = bw + 1;
+    double* LR = sm;                         // [RL][PL] multiplier rows
+    double* F = LR + RL * PL;                // [2][FL] entries made final
+    double* Lt = F + 2 * FL;                 // [TS][W] rows of L
+    double* Rt = Lt + TS * W;                // [TS] their 1/L_jj
+    double* Zt = Rt + TS;                    // [TS][W] made final
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int k0 = warp == 0 ? lane : 32 * warp - 1 + lane;
+    const bool act = k0 <= bw && !(warp == 0 && lane == 31);
+    const int k = act ? k0 : bw;             // idle lanes repeat offset bw
+    const int pi = k & 1, hk = k >> 1;
+    const int src = warp == 0 && lane == 0 ? 1 : max(lane - 1, 0);
+    // rows [i0, i1) of the positions [m TS, (m+1) TS)
+    auto rows = [&](int m, int& i0, int& i1) {
+        const int ih = d - 1 + OFF - m * TS;
+        i1 = min(d, ih + 1);
+        i0 = max(0, ih - TS + 1);
+    };
+    auto stage = [&](int m) {
+        int i0, i1;
+        rows(m, i0, i1);
+        if (i0 < i1) {
+            copy_async(Lt, L + (size_t)i0 * W, (i1 - i0) * W, tid, nt);
+            copy_async(Rt, rinv + i0, i1 - i0, tid, nt);
+        }
+        cp_async_commit();
+    };
+    // thread c forms column c of the tile's rows, all loads first
+    auto build = [&](int m) {
+        int i0, i1;
+        rows(m, i0, i1);
+        double* R0 = LR + (m % (K + 1)) * TS * PL;
+        const int ih = d - 1 + OFF - m * TS;
+        for (int c = tid; c < PL; c += nt) {
+            double r[TS], x[TS];
+#pragma unroll
+            for (int u = 0; u < TS; ++u) {
+                const int i = ih - u;
+                const int ii = i >= i0 && i < i1 ? i - i0 : 0;
+                r[u] = Rt[ii];
+                x[u] = Lt[ii * W + min(c, bw)];
             }
-            slot = ring_dec(slot, W);
+#pragma unroll
+            for (int u = 0; u < TS; ++u) {
+                const int i = ih - u;
+                const bool real = i >= i0 && i < i1;
+                const bool in = c >= 1 && c <= bw && i + c < d;
+                const double v = c == 0 ? r[u] * r[u] : x[u] * r[u];
+                R0[u * PL + c] = real && (c == 0 || in) ? v : 0.0;
+            }
+        }
+    };
+    // the tile's entries made final at steps s0 .. s0 + n - 1 to Z: step
+    // u's entry of offset k is row d - 1 + OFF - (s0 + u) - k/2's
+    auto flush = [&](int s0, int n) {
+        if (tid < W) {
+            double v[TS];
+#pragma unroll
+            for (int u = 0; u < TS; ++u) v[u] = Zt[u * W + tid];
+#pragma unroll
+            for (int u = 0; u < TS; ++u) {
+                const int i = d - 1 + OFF - s0 - u - (tid >> 1);
+                if (u < n && i >= 0 && i < d) Z[(size_t)i * W + tid] = v[u];
+            }
+        }
+    };
+    for (int e = tid; e < 2 * FL; e += nt) F[e] = 0.0;
+    for (int m = 0; m <= K; ++m) {
+        stage(m);
+        cp_async_wait<0>();
+        __syncthreads();
+        build(m);
+        __syncthreads();
+    }
+    stage(K + 1);
+    double acc[NL];
+#pragma unroll
+    for (int l = 0; l < NL; ++l) acc[l] = 0.0;
+    const unsigned ls = smem_addr(LR), fs = smem_addr(F);
+    int b = hk % RL;                         // ring row of position s + hk
+    const int send = d + OFF;                // steps 0 .. send - 1
+    for (int s0 = 0; s0 < send; s0 += TS) {
+        if (s0 > 0) {
+            cp_async_wait<0>();              // rows of tile s0/TS + K
+            __syncthreads();                 // landed; its ring rows free
+            flush(s0 - TS, TS);
+            build(s0 / TS + K);
             __syncthreads();
+            stage(s0 / TS + K + 1);
+        }
+        const int se = min(send, s0 + TS);
+        for (int s = s0; s < se; ++s) {
+            // F[t - k] for t = 2 lag + 3 - pi at fb + 16 lag (bytes)
+            const unsigned fb =
+                fs + 8u * (((s + 1) & 1) * FL + PL + 3 - pi - k);
+            double* fc = F + (s & 1) * FL + PL;
+            // l_t of lag 0's row at off (doubles); the next lag's row PL
+            // on, wrapped without a branch (a lane's wrap is its own)
+            unsigned off = b * PL + 3 - pi;
+            const double l1 = LR[b * PL + 1];
+            // the operands of four lags at a time, loaded in order (one
+            // group ahead of its products) so that no product waits on
+            // the load just before it
+            double qa[2][TW_GROUP], qb[2][TW_GROUP];
+            double fa[2][TW_GROUP], fm[2][TW_GROUP];
+            auto load = [&](int g, int h) {
+#pragma unroll
+                for (int u = 0; u < TW_GROUP; ++u) {
+                    const unsigned l = g * TW_GROUP + u;
+                    const unsigned q = ls + 8u * (off + 2 * l);
+                    qa[h][u] = lds_ordered(q);
+                    qb[h][u] = lds_ordered(q - 8u);
+                    fa[h][u] = lds_ordered(fb + 16u * l);
+                    fm[h][u] = lds_ordered(fb + 16u * l - 8u);
+                    off = min(off + PL, off + PL - RL * PL);
+                }
+            };
+            load(0, 0);
+#pragma unroll
+            for (int g = 0; g < NL / TW_GROUP; ++g) {
+                if (g + 1 < NL / TW_GROUP) load(g + 1, (g + 1) & 1);
+#pragma unroll
+                for (int u = 0; u < TW_GROUP; ++u) {
+                    const int l = g * TW_GROUP + u;
+                    acc[l] = acc[l] - qa[g & 1][u] * fa[g & 1][u];
+                    acc[l] = acc[l] - qb[g & 1][u] * fm[g & 1][u];
+                }
+                if (g == 0) {
+                    // lag 0 is final for odd k; even k takes t = 1 last,
+                    // with the entry offset k - 1 (k = 0: offset 1) made
+                    // final just now; beside the other lags' products
+                    const double got = __shfl_sync(FULL, acc[0], src);
+                    const double z = pi ? acc[0] : acc[0] - l1 * got;
+                    if (act) {
+                        fc[k] = z;
+                        fc[-k] = z;
+                        Zt[(s - s0) * W + k] = z;
+                    }
+                }
+            }
+            // the lags move down; position s + 1 + NL enters (k = 0:
+            // at 1/L_ii^2)
+            int se1 = b + NL;
+            if (se1 >= RL) se1 -= RL;
+            const double enter = k == 0 ? LR[se1 * PL] : 0.0;
+#pragma unroll
+            for (int l = 0; l + 1 < NL; ++l) acc[l] = acc[l + 1];
+            acc[NL - 1] = enter;
+            b = b + 1 == RL ? 0 : b + 1;
+            // ordered with the ordered loads: asm, with a memory clobber
+            if (nt == 32)
+                asm volatile("bar.warp.sync -1;\n" ::: "memory");
+            else
+                bar_sync(0, nt);
         }
     }
+    __syncthreads();
+    const int last = (send - 1) / TS * TS;
+    flush(last, send - last);
+    cp_async_wait<0>();
 }
 
-__global__ void band_takahashi_kernel(const double* __restrict__ L,
-                                      const double* __restrict__ rinv,
-                                      double* __restrict__ Z,
-                                      int d, int bw) {
-    extern __shared__ double sm[];
-    takahashi_rows(L, rinv, Z, d, bw, sm);
-}
-
-// K11: block r takes system r
-__global__ void band_takahashi_batched_kernel(const double* __restrict__ L,
-                                              const double* __restrict__ rinv,
-                                              double* __restrict__ Z,
-                                              int d, int bw) {
+// K4 and K11: block r takes system r
+template <int NL>
+__global__ void __launch_bounds__(32 * TW_MAX_WARPS)
+band_takahashi_wide(const double* __restrict__ L,
+                    const double* __restrict__ rinv, double* __restrict__ Z,
+                    int d, int bw) {
     extern __shared__ double sm[];
     const size_t r = blockIdx.x;
     const size_t ob = r * d * (bw + 1);
-    takahashi_rows(L + ob, rinv + r * d, Z + ob, d, bw, sm);
+    takahashi_wide<NL>(L + ob, rinv + r * d, Z + ob, d, bw, sm);
 }
+
+template <int NL>
+cudaError_t launch_takahashi_wide(const double* L, const double* rinv,
+                                  double* Z, int nsys, int d, int bw,
+                                  cudaStream_t st) {
+    const size_t smem = takahashi_wide_bytes(bw);
+    cudaError_t e = allow_smem(band_takahashi_wide<NL>, smem);
+    if (e != cudaSuccess) return e;
+    band_takahashi_wide<NL><<<nsys, 32 * tw_warps(bw), smem, st>>>(
+        L, rinv, Z, d, bw);
+    return cudaGetLastError();
+}
+
+using TakahashiWideLaunch = cudaError_t (*)(const double*, const double*,
+                                            double*, int, int, int,
+                                            cudaStream_t);
+// by tw_lags(bw) / 4 - 2: bw = 9..125
+const TakahashiWideLaunch kTakahashiWide[15] = {
+    launch_takahashi_wide<8>, launch_takahashi_wide<12>,
+    launch_takahashi_wide<16>, launch_takahashi_wide<20>,
+    launch_takahashi_wide<24>, launch_takahashi_wide<28>,
+    launch_takahashi_wide<32>, launch_takahashi_wide<36>,
+    launch_takahashi_wide<40>, launch_takahashi_wide<44>,
+    launch_takahashi_wide<48>, launch_takahashi_wide<52>,
+    launch_takahashi_wide<56>, launch_takahashi_wide<60>,
+    launch_takahashi_wide<64>};
 
 size_t factor_small_smem(int bw) {
     return sizeof(double) *
         ((size_t)STAGE * (bw + 1) + 3 * (size_t)STAGE * bw + 3 * STAGE);
-}
-
-size_t takahashi_smem(int bw) {
-    const int W = bw + 1;
-    return sizeof(double) * ((size_t)W * W + (size_t)STAGE * W + STAGE);
 }
 
 template <int BW>
@@ -1218,6 +1521,37 @@ const FactorBatchedLaunch kFactorBatchedSmall[SMALL_BW + 1] = {
     launch_factor_batched_small<3>, launch_factor_batched_small<4>,
     launch_factor_batched_small<5>, launch_factor_batched_small<6>,
     launch_factor_batched_small<7>, launch_factor_batched_small<8>};
+
+template <int BW>
+cudaError_t launch_takahashi_small(const double* L, const double* rinv,
+                                   double* Z, int nsys, int d,
+                                   cudaStream_t st) {
+    constexpr int G = BW > 0 ? BW : 1;
+    constexpr size_t TT = G * ((TK_ROWS + G - 1) / G);
+    const size_t smem = sizeof(double) * (3 * TT * (BW + 1) + 2 * TT);
+    band_takahashi_small<BW><<<nsys, 32, smem, st>>>(L, rinv, Z, d);
+    return cudaGetLastError();
+}
+
+using TakahashiLaunch = cudaError_t (*)(const double*, const double*,
+                                        double*, int, int, cudaStream_t);
+const TakahashiLaunch kTakahashiSmall[SMALL_BW + 1] = {
+    launch_takahashi_small<0>, launch_takahashi_small<1>,
+    launch_takahashi_small<2>, launch_takahashi_small<3>,
+    launch_takahashi_small<4>, launch_takahashi_small<5>,
+    launch_takahashi_small<6>, launch_takahashi_small<7>,
+    launch_takahashi_small<8>};
+
+// K4 (nsys = 1) and K11: the register window up to SMALL_BW, the skewed
+// pipeline above it (bw <= 125: four warps)
+cudaError_t launch_takahashi(const double* L, const double* rinv, double* Z,
+                             int nsys, int d, int bw, cudaStream_t st) {
+    if (bw < 0) return cudaErrorInvalidValue;
+    if (bw <= SMALL_BW) return kTakahashiSmall[bw](L, rinv, Z, nsys, d, st);
+    if (tw_warps(bw) > TW_MAX_WARPS || takahashi_wide_bytes(bw) > MAX_SMEM)
+        return cudaErrorInvalidValue;
+    return kTakahashiWide[tw_lags(bw) / 4 - 2](L, rinv, Z, nsys, d, bw, st);
+}
 
 template <int NS, bool BWD, int MAXW, bool CAP>
 cudaError_t launch_solve_warp(const double* L, const double* rinv,
@@ -1398,12 +1732,7 @@ int bgt_band_bwd_multi_warps(const double* L, const double* rinv,
 
 int bgt_band_takahashi(const double* L, const double* rinv, double* Z,
                        int d, int bw, void* stream) {
-    const size_t smem = takahashi_smem(bw);
-    cudaError_t e = allow_smem(band_takahashi_kernel, smem);
-    if (e != cudaSuccess) return (int)e;
-    band_takahashi_kernel<<<1, round_threads(bw > 1 ? bw : 1), smem,
-                            (cudaStream_t)stream>>>(L, rinv, Z, d, bw);
-    return (int)cudaGetLastError();
+    return (int)launch_takahashi(L, rinv, Z, 1, d, bw, (cudaStream_t)stream);
 }
 
 // K8-K11: nsys systems of one shape, stored one after another; hld (and
@@ -1437,13 +1766,8 @@ int bgt_band_bwd_solve_batched(const double* L, const double* rinv,
 int bgt_band_takahashi_batched(const double* L, const double* rinv,
                                double* Z, int nsys, int d, int bw,
                                void* stream) {
-    const size_t smem = takahashi_smem(bw);
-    cudaError_t e = allow_smem(band_takahashi_batched_kernel, smem);
-    if (e != cudaSuccess) return (int)e;
-    band_takahashi_batched_kernel<<<nsys, round_threads(bw > 1 ? bw : 1),
-                                    smem, (cudaStream_t)stream>>>(L, rinv, Z,
-                                                                  d, bw);
-    return (int)cudaGetLastError();
+    return (int)launch_takahashi(L, rinv, Z, nsys, d, bw,
+                                 (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -193,30 +193,25 @@ def band_bwd_solve_batched(L, rinv, B):
 # -- K11: Takahashi selected inverse --------------------------------------
 
 def band_takahashi_batched_plain(L, rinv):
+    """Plain version of band_takahashi_batched: band_takahashi_plain's
+    arithmetic and order, vectorized over the systems."""
     NR, d, W = L.shape
     bw = W - 1
-    Z = torch.zeros_like(L)
-    # blk[r, t-1, o-1] = (H_r^{-1})[j+t, j+o] for the rows below the
-    # current j; sums run over t in order, as in the kernel
-    blk = L.new_zeros((NR, bw, bw))
+    lr, win = bk._takahashi_setup(L, rinv)
+    Zp = L.new_zeros((NR, d + bw, W))     # rows past d: zero
+    flat = Zp.view(NR, -1)
     for j in range(d - 1, -1, -1):
-        rs = rinv[:, j]
-        lr = L[:, j, 1:] * rs[:, None]
+        lj = lr[:, j]
         acc = L.new_zeros((NR, bw))
-        for t in range(bw):
-            acc = acc + lr[:, t, None] * blk[:, t]
-        Z[:, j, 1:] = -acc
-        zjj = rs * rs
-        for t in range(bw):
-            zjj = zjj - lr[:, t] * Z[:, j, t + 1]
-        Z[:, j, 0] = zjj
-        if bw:
-            new = L.new_zeros((NR, bw, bw))
-            new[:, 0, :] = Z[:, j, :bw]
-            new[:, 1:, 0] = Z[:, j, 1:bw]
-            new[:, 1:, 1:] = blk[:, :-1, :-1]
-            blk = new
-    return Z
+        for prod in reversed((lj[:, :, None]
+                              * flat[:, j * W + win]).unbind(1)):
+            acc = acc - prod                  # t = bw first: S(j+t, .)
+        Zp[:, j, 1:] = acc
+        zjj = rinv[:, j] * rinv[:, j]
+        for prod in reversed((lj * acc).unbind(1)):
+            zjj = zjj - prod
+        Zp[:, j, 0] = zjj
+    return Zp[:, :d].clone()
 
 
 def band_takahashi_batched(L, rinv):

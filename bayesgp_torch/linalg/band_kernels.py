@@ -40,9 +40,11 @@ the nearest last, so that one product of a row waits on the row just
 solved; the factor (K1) subtracts each entry's products from the column
 farthest back first, as a right-looking factor makes them, so that one
 product of a pivot waits on the column just factored, and its tail Y =
-L^{-1} C is K2's solve with the cap on |Y|. The plain versions sum in
-the same order. K5 is K3's function on the M columns of the draws, on
-K3's kernels.
+L^{-1} C is K2's solve with the cap on |Y|; the selected inverse (K4)
+subtracts each entry's products farthest-first and takes Z[j, 1]'s
+product last in Z[j, 0], so that two multiply-subtracts lie between one
+row's diagonal and the next. The plain versions sum in the same order.
+K5 is K3's function on the M columns of the draws, on K3's kernels.
 """
 from __future__ import annotations
 
@@ -476,28 +478,45 @@ def band_bwd_multi_warps(L, rinv, Z, warps):
 
 # -- K4: Takahashi selected inverse -----------------------------------------
 
+def _takahashi_setup(L, rinv):
+    """(multipliers, window index) of the plain K4 and K11 for (..., d,
+    bw+1) factors: lr[..., j, t-1] = L[j, t] rinv[j], 0 where j + t >= d,
+    and win, a (bw, bw) index into the flattened rows j.. of a padded
+    (d + bw, bw+1) band with S(j+t, j+o) at j (bw+1) + win[t-1, o-1]
+    (entry |t-o| of row j + min(t, o))."""
+    d, W = L.shape[-2:]
+    t = torch.arange(1, W, device=L.device)
+    lr = L[..., 1:] * rinv[..., None]
+    lr = torch.where(torch.arange(d, device=L.device)[:, None] + t < d, lr,
+                     lr.new_zeros(()))
+    win = torch.minimum(t[:, None], t[None, :]) * W + (t[:, None]
+                                                       - t[None, :]).abs()
+    return lr, win
+
+
 def band_takahashi_plain(L, rinv):
+    """Plain version of band_takahashi, row by row from the last:
+    Z[j, o] = 0 - sum_t l_t S(j+t, j+o) for o = 1..bw, then Z[j, 0] =
+    rinv_j^2 - sum_t l_t Z[j, t], with l_t = L[j, t] rinv_j and S the
+    band of H^{-1} below row j; every sum subtracts its products
+    farthest-first (t = bw first, t = 1 last), each rounded, as the
+    kernels do."""
     d, W = L.shape
     bw = W - 1
-    Z = torch.zeros_like(L)
-    # blk[t-1, o-1] = (H^{-1})[j+t, j+o] for the rows below the current j;
-    # sums run over t in order, as in the kernel
-    blk = L.new_zeros((bw, bw))
+    lr, win = _takahashi_setup(L, rinv)
+    Zp = L.new_zeros((d + bw, W))         # rows past d: zero
+    flat = Zp.view(-1)
     for j in range(d - 1, -1, -1):
-        rs = rinv[j]
-        lr = L[j, 1:] * rs
+        lj = lr[j]
         acc = L.new_zeros(bw)
-        for prod in lr[:, None] * blk:
-            acc = acc + prod
-        Z[j, 1:] = -acc
-        Z[j, 0] = _subtract_in_order(rs * rs, lr * Z[j, 1:])
-        if bw:
-            new = L.new_zeros((bw, bw))
-            new[0, :] = Z[j, :bw]
-            new[1:, 0] = Z[j, 1:bw]
-            new[1:, 1:] = blk[:-1, :-1]
-            blk = new
-    return Z
+        for prod in reversed((lj[:, None] * flat[j * W + win]).unbind(0)):
+            acc = acc - prod                  # t = bw first: S(j+t, .)
+        Zp[j, 1:] = acc
+        zjj = rinv[j] * rinv[j]
+        for prod in reversed((lj * acc).unbind(0)):
+            zjj = zjj - prod
+        Zp[j, 0] = zjj
+    return Zp[:d].clone()
 
 
 def band_takahashi(L, rinv):

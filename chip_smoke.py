@@ -67,7 +67,7 @@ Phases (any failure raises and the script exits non-zero):
  16. the tail-term cell: bench_scattered_iid's engine='banded' q = 512
      point (n = 5e4, k = 500, a 515-wide tail on K6/K7);
  17. a profiled merged-IID Laplace evaluation with its gradient at
-     MERGED_GATE_THETA.
+     MERGED_GATE_THETA, with K4's device time in it.
 Phase 1 builds csrc/band_kernels.cu (K1-K5, K8-K11) and
 csrc/dense_kernels.cu (K6, K7) with two nvcc processes started together;
 phase 2 also checks K1 bit for bit with its one (farthest-first) plain
@@ -75,8 +75,10 @@ version at bw = 1..8, 12, 34, 70 and 125, with tails inside its block
 and past it (K1's tail solve, a column at the |Y| cap), and the wide K1
 at every number of bulk warps, K2, K3 and K5 bit for bit with their one
 (farthest-first) plain version at every register-window width (bw =
-1..8), K8-K11 system by system against K1-K5 bit for bit at bw = 3,
-12, 34 and 70, K6/K7 against their plain versions on healthy and
+1..8), K4 bit for bit with its one (farthest-first) plain version at
+bw = 1..8, 12, 34, 70 and 125, its device time and cholesky_inverse's
+from a CUDA graph, K8-K11 system by system against K1-K5 bit for bit at
+bw = 3, 12, 34 and 70 (K11's device time from a CUDA graph), K6/K7 against their plain versions on healthy and
 indefinite blocks, K7 bit for bit at r = 1, 2, 32, 33, 128, 1000 and 2051
 right-hand sides both ways and timed against solve_triangular at r = 1
 and 2051, the blocked factor and solves at the headline dimension 2051,
@@ -396,12 +398,20 @@ def phase_kernels(bk, dev):
     ref = torch.stack([torch.cat([torch.diagonal(Hinv, -o), A.new_zeros(o)])
                        for o in range(W)], dim=1)
     check_close("K4 against dense inverse", Z, ref, rtol=1e-8)
+    check_equal("K4 against its plain version", Z, Zp)
     rows["band_takahashi"] = dict(
         err=err, ms=cuda_ms(lambda: bk.band_takahashi(L, rinv)),
         plain_ms=cuda_ms(lambda: bk.band_takahashi_plain(L, rinv), n=3,
                          warm=1),
         library_ms=cuda_ms(lambda: torch.cholesky_inverse(Ld)),
+        device_ms=graph_ms(lambda: bk.band_takahashi(L, rinv)),
+        library_device_ms=graph_ms(lambda: torch.cholesky_inverse(Ld),
+                                   n=10),
         nbytes=f8 * (2 * D * W + D), flops=D * (2 * BW * BW + 2 * BW + 2))
+    log(f"  band_takahashi device time (CUDA graph): kernel "
+        f"{rows['band_takahashi']['device_ms']:.4f} ms, cholesky_inverse "
+        f"{rows['band_takahashi']['library_device_ms']:.4f} ms")
+    check_takahashi_orders(bk, dev)
 
     Zn = torch.randn((D, M_DRAWS), generator=g, device=dev,
                      dtype=torch.float64)
@@ -481,6 +491,22 @@ def check_solve_orders(bk, dev, g):
                             plain(L, rinv, B))
     log(f"  K2, K3 and K5 bit for bit with their farthest-first plain "
         f"versions at d={D}, bw = 1..{bk.SMALL_BW}, r = 1 and 3: ok")
+
+
+def check_takahashi_orders(bk, dev):
+    """K4 at every register-window width (bw = 1..8, d = D) and at bw =
+    12, 34, 70 and 125 (d = 600, the ring kernel with one to four warps)
+    against its one plain version, which sums every entry farthest-first
+    and Z[j, 0] with Z[j, 1]'s product last: bit for bit."""
+    cases = [(D, bw) for bw in range(1, bk.SMALL_BW + 1)]
+    cases += [(600, bw) for bw in (12, 34, 70, 125)]
+    for d, bw in cases:
+        _, band, _, _ = spd_problem(dev, d, bw, 0, seed=50 + bw)
+        L, rinv, _, _, _ = bk.band_factor(band, band.new_zeros((d, 0)))
+        check_equal(f"K4 d={d} bw={bw}", bk.band_takahashi(L, rinv),
+                    bk.band_takahashi_plain(L, rinv))
+    log(f"  K4 bit for bit with its farthest-first plain version at "
+        f"d={D}, bw = 1..{bk.SMALL_BW} and d=600, bw = 12, 34, 70, 125: ok")
 
 
 def check_other_shapes(bk, dev):
@@ -630,6 +656,10 @@ def phase_batched_kernels(bk, bb, dev):
             r = dict(err=errs[name], ms=cuda_ms(kern),
                      plain_ms=cuda_ms(plain, n=2, warm=1),
                      library_ms=cuda_ms(library, n=5, warm=1), systems=nr)
+            if name == "band_takahashi_batched":
+                r["device_ms"] = graph_ms(kern)
+                log(f"  {name} NR={nr} device time (CUDA graph): "
+                    f"{r['device_ms']:.4f} ms")
             # per system: each input read once, each output written once
             r["bound_ms"], r["bound_by"] = bound(nr * nbytes, nr * flops)
             log(f"  {name} NR={nr}: kernel {r['ms']:.4f} ms, plain "
@@ -786,7 +816,8 @@ def profile_run(label, run):
     """`run` once on the host clock, then once more under torch.profiler:
     the card's busy share of the call's wall time and the device time by
     kernel. The profiler slows the host, so the share is taken of the
-    unprofiled wall time as well."""
+    unprofiled wall time as well. Returns {device op: (ms, count)} and the
+    busy seconds, or None where the profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -808,7 +839,7 @@ def profile_run(label, run):
     busy = sum(e.self_device_time_total for e in events) / 1e6
     if not events:
         log("  profile: no device time recorded (busy share not measured)")
-        return
+        return None
     log(f"  profiled {label}: {wall0:.3f} s wall, {wall:.3f} s under the "
         f"profiler; device busy {busy:.3f} s ({100 * busy / wall0:.1f}% of "
         f"the wall time, {100 * busy / wall:.1f}% under the profiler), "
@@ -816,6 +847,8 @@ def profile_run(label, run):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
             f"{e.key[:80]}")
+    return {e.key: (e.self_device_time_total / 1e3, e.count)
+            for e in events}, busy
 
 
 def phase_fixed_point(bk, fit):
@@ -2029,9 +2062,18 @@ def main():
         f"{MERGED_GATE_THETA} (a fixed theta: fixed work across runs)")
     mbe = mfit.mod.backend
     mtheta = torch.tensor(MERGED_GATE_THETA, dtype=torch.float64, device=dev)
-    profile_run("one Laplace evaluation with its gradient, cold start, "
-                "merged-IID headline",
-                lambda: mbe.value_and_grad(mtheta, mbe.init_state()))
+    prof = profile_run("one Laplace evaluation with its gradient, cold "
+                       "start, merged-IID headline",
+                       lambda: mbe.value_and_grad(mtheta, mbe.init_state()))
+    if prof is None:
+        log("  K4 device time in the merged evaluation: not measured")
+    else:
+        k4 = [v for k, v in prof[0].items() if "takahashi" in k]
+        k4_ms, k4_n = sum(v[0] for v in k4), sum(v[1] for v in k4)
+        log(f"  K4 device time in the merged evaluation: {k4_ms:.3f} ms in "
+            f"{k4_n} launches ({100 * k4_ms / 1e3 / prof[1]:.1f}% of "
+            f"{prof[1] * 1e3:.1f} ms busy)")
+        require(k4_n > 0, "K4 ran in the merged evaluation")
 
     kernels = []
     for name, r in rows.items():

@@ -13,7 +13,11 @@ width) and at bw = 12 and 40 (d = 200, past SMALL_BW): K2, K3 and K5
 sum a row's products farthest-first at every width, each equal bit for
 bit to a numpy loop in that order (and not to one in the other order),
 and against scipy.linalg.solve_triangular on the dense factor at rtol
-1e-12 (a well-conditioned band, f64 both sides). The factor's order:
+1e-12 (a well-conditioned band, f64 both sides). At the same widths the
+plain K4 sums every entry of H^{-1} farthest-first, Z[j, 0] with Z[j,
+1]'s product last: bit for bit a numpy loop in that order and not one
+nearest-first, the band of the dense inverse at rtol 1e-10, and the
+plain K11 equal to it system by system. The factor's order:
 the plain K1 at bw = 3 and 12 (with its tail Y) and the plain K8 at
 bw = 3, each equal bit for bit to a numpy right-looking factor, which
 subtracts every entry's products farthest-first.
@@ -132,15 +136,64 @@ def _check_factor_orders():
                 np.testing.assert_array_equal(rb[r].numpy(), rw)
 
 
+def _loop_takahashi(L, rinv, farthest):
+    """numpy loop of the band selected inverse, every sum in one order:
+    Z[j, o] = 0 - sum_t l_t S(j+t, j+o), then Z[j, 0] = rinv_j^2 - sum_t
+    l_t Z[j, t], t from bw down to 1 (the plain versions' order) or from
+    1 up to bw (nearest-first)."""
+    d, W = L.shape
+    bw = W - 1
+    Zp = np.zeros((d + bw, W))          # rows past d: zero
+    t = np.arange(1, W)
+    rows = np.minimum.outer(t, t)
+    cols = np.abs(np.subtract.outer(t, t))
+    order = range(bw - 1, -1, -1) if farthest else range(bw)
+    for j in range(d - 1, -1, -1):
+        lr = np.where(j + t < d, L[j, 1:] * rinv[j], 0.0)
+        S = Zp[j + rows, cols]          # S[t-1, o-1] = S(j+t, j+o)
+        acc = np.zeros(bw)
+        for k in order:
+            acc = acc - lr[k] * S[k]
+        Zp[j, 1:] = acc
+        zjj = rinv[j] * rinv[j]
+        for k in order:
+            zjj = zjj - lr[k] * acc[k]
+        Zp[j, 0] = zjj
+    return Zp[:d]
+
+
+def _check_takahashi_orders(bw, A, L, rinv):
+    """K4's plain version in its order, against the dense inverse, and
+    K11's system by system."""
+    Ln, rn = L.numpy(), rinv.numpy()
+    Z = bk.band_takahashi_plain(L, rinv).numpy()
+    np.testing.assert_array_equal(Z, _loop_takahashi(Ln, rn, True))
+    assert not np.array_equal(Z, _loop_takahashi(Ln, rn, False))
+    d = A.shape[0]
+    Hinv = np.linalg.inv(A)
+    np.testing.assert_allclose(Z, np.stack(
+        [np.concatenate([np.diag(Hinv, -o), np.zeros(o)])
+         for o in range(bw + 1)], 1), rtol=1e-10,
+        atol=1e-10 * np.abs(Hinv).max())
+    _, band2 = _spd_band(np.random.default_rng(100 + bw), d, bw)
+    L2, r2, _, _, _ = bk.band_factor(torch.tensor(band2.T.copy()),
+                                     torch.zeros((d, 0), dtype=torch.float64))
+    Zb = bb.band_takahashi_batched_plain(torch.stack([L, L2]),
+                                         torch.stack([rinv, r2]))
+    assert torch.equal(Zb[0], torch.tensor(Z))
+    assert torch.equal(Zb[1], bk.band_takahashi_plain(L2, r2))
+
+
 def _check_solve_orders():
     _check_factor_orders()
     for bw in (3, 12, 40):
         rng = np.random.default_rng(bw)
         d = 200
-        _, band = _spd_band(rng, d, bw)
+        A, band = _spd_band(rng, d, bw)
         L, rinv, _, _, _ = bk.band_factor(torch.tensor(band.T.copy()),
                                           torch.zeros((d, 0),
                                                       dtype=torch.float64))
+        _check_takahashi_orders(bw, A, L, rinv)
         B = rng.normal(size=(d, R))
         Ln, rn = L.numpy(), rinv.numpy()
         Ld = _dense_band(Ln, bw)
