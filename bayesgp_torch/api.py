@@ -1,14 +1,16 @@
 """`model_fit`, the main entry point (reference: R/02_model_fit.R:309-701).
 
 Accepts a formula string (the reference's `f()` vocabulary) or pre-built
-terms, assembles the model, runs the AGHQ fit on the banded single-IWP
-backend, the multi-term banded backend or the scattered-IID backend,
-draws M posterior samples and returns a FitResult with the reference's
+terms, assembles the model, runs the AGHQ fit on the dense backend (small
+models), the banded single-IWP backend, the multi-term banded backend or
+the scattered-IID backend, or the nlminb MAP with Gaussian draws, draws M
+posterior samples and returns a FitResult with the reference's
 sample-index partitions. Routes not ported yet raise NotImplementedError
 naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
+import contextlib
 import warnings
 
 import numpy as np
@@ -18,9 +20,12 @@ from . import formula as formula_mod
 from . import terms as terms_mod
 from .device import resolve_device
 from .model import build as build_mod
+from .model.objective import to_device
 from .inference import aghq as aghq_mod
+from .inference import laplace as laplace_mod
 from .inference import sampling as sampling_mod
 from .postfit import FitResult
+from .utils.profiling import PhaseTimer
 
 
 def _as_dict_of_arrays(data):
@@ -202,6 +207,7 @@ def _unported(route, item):
 
 def _backend(asm, engine, device):
     """The backend of an assembled model, as the JAX package picks it: the
+    dense backend where the model is not on the banded route; there the
     banded single-IWP backend for one IWP smooth; with engine=
     'scatter_iid' the diagonal-first IID backend; else the multi-term
     banded backend, and the scatter_iid backend where that refuses the
@@ -212,7 +218,7 @@ def _backend(asm, engine, device):
     from .fast.scatter_iid import build_scatter_iid
     instances, md = asm["instances"], asm["md"]
     if not asm["use_banded"]:
-        raise _unported("the dense backend (aghq.DenseBackend)", 4)
+        return aghq_mod.DenseBackend(md, device=device)
     args = (instances, md, asm["design_mat_fixed"], asm["bf_prec"],
             asm["bf_mean"])
     if engine == "scatter_iid":
@@ -268,44 +274,78 @@ def model_fit(formula=None, data=None, method: str = "aghq",
               weight=None, strata=None, M: int = 3000, env=None,
               customized_re=None, seed: int = 0, terms=None, fixed=None,
               response=None, engine: str = "auto", theta0=None,
+              timing: bool = False, predict_at=None,
               device="cuda") -> FitResult:
-    """Fit a Bayesian hierarchical GP model with AGHQ.
+    """Fit a Bayesian hierarchical GP model.
 
     Either pass `formula` (string) + `data`, or `response=`/`fixed=`/
-    `terms=` explicitly. Ported routes, for an elementwise family with no
-    noise hyperparameter (Poisson, Binomial), on engine='banded' or on
-    'auto' at scale: one IWP smooth with fixed effects (the banded
-    single-IWP engine); an IWP smooth with other terms (the multi-term
-    banded engine: a large IID term clustered in x merged into the band,
-    other terms in a dense tail); and, where the merge refuses an IID
-    term of more than 4,000 levels, or with engine='scatter_iid', one IWP
-    smooth plus one IID term (the scattered-IID engine).
+    `terms=` explicitly. Ported routes, for the elementwise families
+    (Gaussian, Poisson, Binomial):
+    - method='aghq' on the dense backend: every model off the banded
+      route, which engine='auto' picks for small models (n * basis size
+      <= 2e6, at most 300 basis functions, no lazy IID term) and
+      engine='dense' always;
+    - method='aghq', with no noise hyperparameter (Poisson, Binomial), on
+      the banded routes at scale or with engine='banded': one IWP smooth
+      with fixed effects (the banded single-IWP engine); an IWP smooth
+      with other terms (the multi-term banded engine: a large IID term
+      clustered in x merged into the band, other terms in a dense tail);
+      and, where the merge refuses an IID term of more than 4,000 levels,
+      or with engine='scatter_iid', one IWP smooth plus one IID term (the
+      scattered-IID engine);
+    - method='nlminb' for a model with no hyperparameter: the posterior
+      mode of W and M draws from the Gaussian at its Hessian.
 
     device: where the fit runs, "cuda" by default; a missing card
     raises rather than falling back. The posterior draws come from a
     torch.Generator on that device seeded with `seed`.
+
+    timing=True attaches a per-phase wall-clock breakdown (build /
+    backend construction / inference and draws) as `fit.timing`
+    (utils.profiling.PhaseTimer; print `fit.timing.summary()`).
+
+    predict_at=(var, xs): predict summaries for the named GP component at
+    locations xs, computed after the fit (the regular predict) and
+    attached as fit.predictions[var].
     """
     dev = resolve_device(device)
-    if method != "aghq":
-        item = {"nlminb": 4, "MCMC": 10}.get(method)
-        if item is None:
-            raise ValueError(f"unknown method '{method}'")
-        raise _unported(f"method='{method}'", item)
-    asm = assemble_model(
-        formula=formula, data=data, method=method, family=family,
-        control_family=control_family, control_fixed=control_fixed,
-        size=size, cens=cens, weight=weight, strata=strata, env=env,
-        customized_re=customized_re, terms=terms, fixed=fixed,
-        response=response, engine=engine)
+    if method not in ("aghq", "nlminb"):
+        if method == "MCMC":
+            raise _unported("method='MCMC'", 10)
+        raise ValueError(f"unknown method '{method}'")
+    timer = None
+    if timing:
+        timer = PhaseTimer(sync=(torch.cuda.synchronize
+                                 if dev.type == "cuda" else None))
+    tphase = (timer.phase if timer is not None
+              else (lambda name: contextlib.nullcontext()))
+    with tphase("build (bases, priors, model data)"):
+        asm = assemble_model(
+            formula=formula, data=data, method=method, family=family,
+            control_family=control_family, control_fixed=control_fixed,
+            size=size, cens=cens, weight=weight, strata=strata, env=env,
+            customized_re=customized_re, terms=terms, fixed=fixed,
+            response=response, engine=engine)
     instances, md = asm["instances"], asm["md"]
     fixed_names = asm["fixed_names"]
 
-    backend = _backend(asm, engine, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    mod = aghq_mod.aghq_fit(backend, k=aghq_k, theta0=theta0)
-    _warn_sick_gate(backend, mod)
-    samps, _, theta_samps = sampling_mod.sample_marginal(mod, M, gen)
+    if method == "aghq":
+        with tphase("backend construction"):
+            backend = _backend(asm, engine, dev)
+        with tphase("inference (AGHQ fit + posterior draws)"):
+            mod = aghq_mod.aghq_fit(backend, k=aghq_k, theta0=theta0)
+            _warn_sick_gate(backend, mod)
+            samps, _, theta_samps = sampling_mod.sample_marginal(mod, M, gen)
+    else:
+        with tphase("inference (MAP + Gaussian draws)"):
+            dmd = to_device(md, dev)
+            Ws, H, _ = laplace_mod.laplace_mode_hess(
+                torch.zeros(0, dtype=torch.float64, device=dev), dmd)
+            mod = {"mean": Ws.cpu().numpy(), "prec": H.cpu().numpy()}
+            samps = sampling_mod.sample_mvn_precision(gen, Ws, H, M)
+            theta_samps = np.zeros((M, 0))
 
     # sample-index partitions (reference R/02_model_fit.R:627-675)
     sum_col_ins = sum(md.d_sizes)
@@ -324,7 +364,7 @@ def model_fit(formula=None, data=None, method: str = "aghq",
             off_bdry += xcols
     fixed_samp_indexes = {nm: np.array([md.fixed_offset() + i])
                           for i, nm in enumerate(fixed_names)}
-    return FitResult(
+    fit = FitResult(
         instances=instances, mod=mod, md=md, method=method, family=family,
         samps=samps, theta_samps=theta_samps,
         random_samp_indexes=random_samp_indexes,
@@ -332,4 +372,8 @@ def model_fit(formula=None, data=None, method: str = "aghq",
         fixed_samp_indexes=fixed_samp_indexes,
         control_family=asm["control_family"],
         control_fixed=asm["control_fixed"],
-        fixed_names=fixed_names, M=M)
+        fixed_names=fixed_names, M=M, timing=timer)
+    if predict_at is not None:
+        pvar, pxs = predict_at
+        fit.predictions = {pvar: fit.predict(pvar, newdata={pvar: pxs})}
+    return fit

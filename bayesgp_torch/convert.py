@@ -17,6 +17,10 @@ diagonal terms' priors and the reference-order permutation:
 (V, tail), as a single-IWP backend's).
 `replicate_responses` checks the (R, n) raw-order responses of a
 replicate fit, which both packages take as numpy.
+A dense model is a ModelData: `model_data_arrays` gives its arrays and
+layout as host numpy (of either package's ModelData),
+`model_data_from_arrays` this package's ModelData with them as tensors on
+a device, which the dense objective and Laplace functions take.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 
 from .fast import banded, iwp, scatter_iid
 from .model.build import ModelData
+from .model.objective import to_device
 
 # backend fields carried as arrays (FastIWPBackend of either package)
 ARRAY_FIELDS = ("valsT", "start", "seg_lo", "seg_hi", "XFpT", "Z0", "PZ0",
@@ -41,6 +46,32 @@ BANDED_FIELDS = ("valsT", "start", "XFpT", "Z0", "PZ0", "Z0PZ0", "P_band",
 BANDED_OPTIONAL = ("prior_diag_band", "Z0PZ0_pad")
 BANDED_SCALARS = ("drv_theta", "Wl", "G", "d", "dpad", "d_drv",
                   "logPdet_drv", "logdetT", "w_real")
+
+
+# ModelData fields carried by model_data_arrays: arrays, then layout
+DENSE_FIELDS = ("A", "y", "P_blocks", "logPdet", "u", "alpha", "betaprec",
+                "betamean", "bf_prec", "bf_mean", "size", "cens", "ranks",
+                "case_day", "control_days", "count")
+LAYOUT_FIELDS = ("family", "d_sizes", "x_sizes", "xf_count")
+
+
+def model_data_arrays(md) -> dict:
+    """Host numpy arrays (P_blocks a tuple of them) and the layout of a
+    ModelData of either package."""
+    out = {f: (tuple(_host(b) for b in md.P_blocks) if f == "P_blocks"
+               else _host(getattr(md, f))) for f in DENSE_FIELDS}
+    out.update(family=int(md.family),
+               d_sizes=tuple(int(x) for x in md.d_sizes),
+               x_sizes=tuple(int(x) for x in md.x_sizes),
+               xf_count=int(md.xf_count))
+    return out
+
+
+def model_data_from_arrays(arrays: dict, device="cuda") -> ModelData:
+    """This package's ModelData from the dict model_data_arrays returns,
+    its arrays f64 (index arrays int64) tensors on `device`."""
+    md = ModelData(**{f: arrays[f] for f in DENSE_FIELDS + LAYOUT_FIELDS})
+    return to_device(md, device)
 
 
 def _model_data(arrs, d_sizes, x_sizes, xf_count):

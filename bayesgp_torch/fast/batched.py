@@ -192,7 +192,8 @@ class BatchedFastIWP:
     # -- Hessian --------------------------------------------------------------
     def _assemble_scaled(self, V, tail, theta, eta=None):
         """Jacobi-equilibrated arrowheads at (V, tail): (band_s, C_s, Hd_s,
-        sc, sd) with H~_r = S_r H_r S_r, S_r = diag(sc_r, sd_r)."""
+        sc, sd, wts) with H~_r = S_r H_r S_r, S_r = diag(sc_r, sd_r), and
+        wts the likelihood weights."""
         base = self.base
         e = self.eta(V, tail) if eta is None else eta
         wts = self._wts(e)
@@ -213,12 +214,37 @@ class BatchedFastIWP:
                               for o in range(self.p + 1)], dim=2)
         band_s = band * sc[:, :, None] * sc_off
         C_s = C * sc[:, :, None] * sd[:, None, :] if self.q else C
-        return band_s, C_s, Hd, sc, sd
+        return band_s, C_s, Hd, sc, sd, wts
+
+    def _tail_schur(self, L, rinv, Y, sc, sd, wts, theta):
+        """(R, q, q) Schur tails of the equilibrated arrowheads, sd_r S_r
+        sd_r, each the Gram of least-squares residuals of
+        FastIWPBackend._tail_schur (never Hd - Y^T Y, which cancels where
+        the prior pins the driver); differentiable in wts and theta."""
+        base = self.base
+        with torch.no_grad():
+            Wt = (self.engine.ops.bwd_solve(L, rinv, Y.contiguous())
+                  * sc[:, :, None] / sd[:, None, :]).mT    # (R, q, dpad)
+        BW = sum(base.valsT[a] * Wt[:, :, base._cols[a]]
+                 for a in range(self.p + 1))               # (R, q, n)
+        E1 = torch.sqrt(wts)[:, None, :] * (base.XFpT - BW)
+        Wc = base.Z0.T + Wt[:, :, :self.d]                 # (R, q, d)
+        E2 = (base.apply_T(Wc) * base._sqrt_w
+              * torch.exp(0.5 * theta)[:, None, None])
+        S = (E1 @ E1.mT + E2 @ E2.mT
+             + torch.diag(base.prior_diag_tail))
+        return S * sd[:, :, None] * sd[:, None, :]
+
+    def _factor_scaled(self, band_s, C_s, sc, sd, wts, theta):
+        def schur(L, rinv, Y):
+            return self._tail_schur(L, rinv, Y, sc, sd, wts, theta)
+        return self.engine.factor(band_s, C_s, schur)
 
     def hessian_factor(self, V, tail, theta, eta=None):
-        band_s, C_s, Hd, sc, sd = self._assemble_scaled(V, tail, theta,
-                                                        eta=eta)
-        return self.engine.factor(band_s, C_s, Hd), sc, sd
+        band_s, C_s, Hd, sc, sd, wts = self._assemble_scaled(
+            V, tail, theta, eta=eta)
+        return (self._factor_scaled(band_s, C_s, sc, sd, wts, theta),
+                sc, sd)
 
     def solve_H(self, factor, gV, gt):
         af, sc, sd = factor
@@ -331,13 +357,18 @@ class BatchedFastIWP:
         theta); see fast/iwp._laplace_value. `factor`: a hessian_factor at
         the same point, whose factorization the primal then reuses."""
         e0 = self.eta(V, tail)
-        band_s, C_s, Hd, sc, sd = self._assemble_scaled(V, tail, theta,
-                                                        eta=e0)
+        band_s, C_s, Hd, sc, sd, wts = self._assemble_scaled(
+            V, tail, theta, eta=e0)
+        # the tails' scale cancels from 0.5 log|sd S sd| - sum log sd
+        sd = sd.detach()
         if factor is None:
-            hld = self.engine.arrow_half_logdet(band_s, C_s, Hd)
+            af = self._factor_scaled(band_s, C_s, sc.detach(), sd,
+                                     wts.detach(), theta.detach())
         else:
-            hld = self.engine.arrow_half_logdet_given(band_s, C_s, Hd,
-                                                      factor[0])
+            af = factor[0]
+        S_s = (self._tail_schur(af.L, af.rinv, af.Y, sc.detach(), sd, wts,
+                                theta) if self.q else Hd)
+        hld = self.engine.schur_half_logdet(band_s, S_s, af)
         half_logdet = hld - torch.log(sc).sum(1) - torch.log(sd).sum(1)
         f = -self._loglik(e0) + self._prior_neg(V, tail, theta)
         return (f + half_logdet - 0.5 * (self.d + self.q) * LOG2PI
@@ -499,10 +530,12 @@ def max_replicates(p: int, n: int, q: int = 0) -> int:
     under autograd, per replicate: the (p+1)(p+2)/2 weighted design
     products behind band_H, their prefix sum and a third copy for
     autograd (3 (p+1)(p+2)/2 n), the same three for the (p+1) q products
-    behind C_block, the (5, n) line-search etas with their exponentials
-    and products (15 n), and about ten (n,) vectors (eta, weights,
-    residual, gathers). The group may fill GROUP_BYTES (16 GiB, a fifth
-    of an 80 GB card). At p = 3, q = 4, n = 1e5 that is 82 MB a replicate
-    and a cap of 208."""
-    per_rep = 8 * n * (3 * (p + 1) * (p + 2) // 2 + 3 * (p + 1) * q + 25)
+    behind C_block, the (p + 3) q behind the Gram Schur tail (its p + 1
+    gathers, the residuals and their copy for autograd), the (5, n)
+    line-search etas with their exponentials and products (15 n), and
+    about ten (n,) vectors (eta, weights, residual, gathers). The group
+    may fill GROUP_BYTES (16 GiB, a fifth of an 80 GB card). At p = 3,
+    q = 4, n = 1e5 that is 102 MB a replicate and a cap of 169."""
+    per_rep = 8 * n * (3 * (p + 1) * (p + 2) // 2 + 3 * (p + 1) * q
+                       + (p + 3) * q + 25)
     return max(1, GROUP_BYTES // per_rep)

@@ -73,8 +73,14 @@ class HostNodes:
                 torch.tensor(th, dtype=DTYPE, device=self.device), warm)
             nlls.append(val)
             if keep_states:
-                states.append(st + (factor,))
+                states.append(self.node_pack(st, factor))
         return torch.stack(nlls).cpu().numpy(), (states or None)
+
+    @staticmethod
+    def node_pack(st, factor):
+        """A node's sampling state, as `sample` reads it: the latent
+        state's parts, then the factor."""
+        return st + (factor,)
 
     def hess(self, theta, state):
         """Outer Hessian by central differences (step H_FD) of the

@@ -5,11 +5,11 @@ marginal_laplace_tmb, k = 4 by default): find the mode of the Laplace
 marginal nll(theta), adapt a Gauss-Hermite rule with the mode and the
 outer curvature, and form the log normalizing constant and the theta
 marginals. The fit is a host loop over warm-started Laplace evaluations
-of the backend (fast/iwp.FastIWPBackend for one theta,
-fast/scatter_iid.ScatterIIDBackend for two); each evaluation runs its
-linear algebra on the backend's device. One theta takes the secant-Newton
-of optimize_1d; more take the gradient-only BFGS of optimize_theta, the
-JAX package's host path for heavy evaluations.
+of the backend (DenseBackend below for small models of any structure,
+fast/iwp.FastIWPBackend and the other fast backends at scale); each
+evaluation runs its linear algebra on the backend's device. One theta
+takes the secant-Newton of optimize_1d; more take the gradient-only BFGS
+of optimize_theta, the JAX package's host path for heavy evaluations.
 
 Conventions match aghq/mvQuad 'GHe': nodes are probabilists' Hermite
 roots; weights integrate f against Lebesgue measure for f ~ poly x
@@ -25,6 +25,10 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+
+from ..fast.iwp import HostNodes
+from ..model.objective import to_device
+from .laplace import laplace_nll, laplace_nll_with_factor
 
 # outer optimizer: gradient tolerance, iteration cap, the f64 noise level
 # of the nll value, and the central-difference step of the outer Hessian
@@ -56,6 +60,87 @@ def _logsumexp_np(lw):
     lw = np.asarray(lw)
     m = lw.max()
     return float(m + np.log(np.sum(np.exp(lw - m))))
+
+
+class DenseBackend(HostNodes):
+    """The dense route: dense design, dense Hessian, torch.linalg Cholesky
+    (inference/laplace.py); exact for every model structure, and the
+    route engine="auto" takes for small models. The model's arrays live
+    on `device` as f64 tensors. The latent state is W* (w,); a node's
+    sampling state is (W*, lower Cholesky factor of H).
+
+    `stats` counts Laplace evaluations ("evals"), inner Newton steps
+    ("newton") and host syncs ("syncs": the inner loop's stopping tests
+    and the optimizers' reads of each value_and_grad; the node values are
+    read together, at the end of the fit)."""
+
+    def __init__(self, md, device="cuda"):
+        self.device = torch.device(device)
+        self.md = to_device(md, self.device)
+        self.stats = {"evals": 0, "newton": 0, "syncs": 0}
+
+    @property
+    def n_theta(self):
+        return self.md.n_theta
+
+    @property
+    def em_dims(self):
+        """Per-theta penalized dimensions for optimize_1d's EM-style jump:
+        the prior contributes -0.5 d_r theta_r per random effect (d_r
+        spline coefficients, src/BayesGP.cpp:227-232), and the Gaussian
+        noise theta gets d = n from the likelihood."""
+        dims = [float(d) for d in self.md.d_sizes]
+        if self.md.family == 0:
+            dims.append(float(self.md.n))
+        return np.asarray(dims)
+
+    def init_state(self):
+        return torch.zeros(self.md.w_count, dtype=torch.float64,
+                           device=self.device)
+
+    def _theta(self, theta):
+        return torch.as_tensor(theta, dtype=torch.float64,
+                               device=self.device)
+
+    def value_and_grad(self, theta, warm):
+        """(nll, d nll / d theta, W*) at theta (a tensor or numpy),
+        warm-started from W* `warm`."""
+        th = self._theta(theta).detach().clone().requires_grad_(True)
+        val, Ws = laplace_nll(th, self.md, W0=warm, stats=self.stats)
+        (g,) = torch.autograd.grad(val, th)
+        self.stats["evals"] += 1
+        self.stats["syncs"] += 1
+        return val.detach(), g, Ws.detach()
+
+    @torch.no_grad()
+    def laplace_eval_full(self, theta, warm):
+        """(nll, W*, lower Cholesky factor of H) of one quadrature node:
+        the factor is the half log-det's (laplace_nll_with_factor)."""
+        val, Ws, L = laplace_nll_with_factor(self._theta(theta), self.md,
+                                             W0=warm, stats=self.stats)
+        self.stats["evals"] += 1
+        return val, Ws, L
+
+    @staticmethod
+    def node_pack(st, factor):
+        return (st, factor)
+
+    def noise_rows(self):
+        """Rows of the standard normal noise `sample` takes."""
+        return (self.md.w_count,)
+
+    @torch.no_grad()
+    def sample(self, states, idx, z):
+        """(w, M) mixture draws W*_j + L_j^{-T} z_m, j = idx[m]: one
+        triangular solve a node over the draws that picked it (never an
+        (M, w, w) stack of factors). states: per-node (W*, L); z (w, M)."""
+        out = torch.empty_like(z)
+        for j, (Ws, L) in enumerate(states):
+            pick = idx == j
+            zj = z[:, pick]
+            out[:, pick] = Ws[:, None] + torch.linalg.solve_triangular(
+                L.T, zj, upper=True)
+        return out
 
 
 @dataclass
@@ -96,8 +181,8 @@ def optimize_1d(backend, theta0: float = 0.0, tol: float = TOL,
     both warm-started from the mode's latent state."""
     dev = backend.device
     em_dim = float(backend.em_dims[0])
-    em_phi = float(-math.log(float(np.asarray(backend.md.alpha)[0]))
-                   / float(np.asarray(backend.md.u)[0]))
+    em_phi = float(-math.log(float(backend.md.alpha[0]))
+                   / float(backend.md.u[0]))
 
     def vg(th, state):
         val, g, st = backend.value_and_grad(
@@ -361,9 +446,9 @@ def aghq_fit(backend, k: int = 4, theta0=None) -> AGHQFit:
     for th_j in nodes:
         th_t = torch.tensor([th_j], dtype=torch.float64,
                             device=backend.device)
-        val, (V, tail), factor = backend.laplace_eval_full(th_t, st)
+        val, st_j, factor = backend.laplace_eval_full(th_t, st)
         nlls.append(val)
-        states.append((V, tail, factor))
+        states.append(backend.node_pack(st_j, factor))
     nlls = torch.stack(nlls).cpu().numpy()
     _, logw_base = product_grid(k, 1)
     logw = logw_base + math.log(Lad)

@@ -8,16 +8,20 @@ The batched counterpart of band_arrow.BandArrowEngine: NR independent
 of one shape (d, bw, q). The banded parts go through the kernels of
 band_batched.py in one launch each (K8 factor, K9 for Y_r = L_r^{-1} C_r
 and the forward solves, K10 backward solves, K11 selected inverse); the
-small dense Schur tails S_r = Hd_r - Y_r^T Y_r are batched torch.linalg
-calls. Bands are (NR, d, bw+1), C (NR, d, q), Hd (NR, q, q), right-hand
-sides (NR, d) and (NR, q).
+small dense Schur tails are batched torch.linalg calls. The caller forms
+each tail S_r itself and passes it to `factor` as `schur` (fast/batched.py
+forms it as a Gram of least-squares residuals, as fast/iwp.py does for one
+system: Hd_r - Y_r^T Y_r would cancel where the prior pins the driver).
+Bands are (NR, d, bw+1), C (NR, d, q), S (NR, q, q), right-hand sides
+(NR, d) and (NR, q).
 
-`arrow_half_logdet` is the differentiable (NR,) half log-det: a
-torch.autograd.Function whose backward is the batched Takahashi selected
-inverse plus the Schur-tail corrections, system r's cotangents scaled by
-ct[r]. No operation mixes systems, so the gradient of the sum over r is
-each system's own gradient. The sick-factor gate is BandArrowEngine's,
-system by system.
+`schur_half_logdet` is the differentiable (NR,) half log-det 0.5 log|Hb_r|
++ 0.5 log|S_r|: a torch.autograd.Function whose backward gives the band
+the cotangent 0.5 Takahashi(Hb_r) (the batched selected inverse) and S_r
+0.5 S_r^{-1}, system r's scaled by ct[r]; the tails' derivative is taken
+through the caller's S. No operation mixes systems, so the gradient of the
+sum over r is each system's own gradient. The sick-factor gate is
+BandArrowEngine's, system by system.
 """
 from __future__ import annotations
 
@@ -66,16 +70,19 @@ class BandArrowBatchedEngine:
     def with_ops(self, ops):
         return BandArrowBatchedEngine(self.d, self.bw, self.q, self.NR, ops)
 
-    def factor(self, bands, C, Hd):
+    def factor(self, bands, C, schur):
+        """BatchedFactor of the arrowheads whose Schur tails are
+        schur(L, rinv, Y) (NR, q, q), with Y = L^{-1} C (not called where
+        q = 0)."""
         with torch.no_grad():
             L, rinv, hld_b, clamped = self.ops.factor(
                 bands.detach().contiguous())
             if self.q:
                 Y = self.ops.fwd_solve(L, rinv, C.detach().contiguous())
-                Ls, left = chol_jittered(Hd.detach() - Y.mT @ Y)
+                Ls, left = chol_jittered(schur(L, rinv, Y).detach())
             else:
-                Y, Ls, left = C.detach(), Hd.detach(), torch.zeros_like(
-                    clamped)
+                Y, left = C.detach(), torch.zeros_like(clamped)
+                Ls = C.new_zeros((self.NR, 0, 0))
         return BatchedFactor(L, rinv, Y, Ls, hld_b, clamped, left)
 
     def half_logdet(self, f: BatchedFactor):
@@ -95,64 +102,61 @@ class BandArrowBatchedEngine:
         zb = self.ops.bwd_solve(f.L, f.rinv, u.contiguous())
         return zb[:, :, 0], zd
 
-    def hld_backward(self, f: BatchedFactor, ct):
-        """Cotangents of the (NR,) half log-dets for (bands, C, Hd) from
-        ct (NR,): per system, Hinv_bb|band = Takahashi(Hb) + band(W S^{-1}
-        W^T), Hinv_bd = -W S^{-1}, Hinv_dd = S^{-1}, with W = Hb^{-1} C."""
-        NR, d, bw, q = self.NR, self.d, self.bw, self.q
+    def _tail_inverse(self, f: BatchedFactor):
+        """(NR, q, q) S_r^{-1} from the tail factors."""
+        eye = torch.eye(self.q, dtype=f.L.dtype, device=f.L.device)
+        return _solve_Lt(f.Ls, _solve_L(f.Ls, eye.expand(self.NR, -1, -1)))
+
+    def _gated(self, f: BatchedFactor, ct, hinv_band, tail):
+        """(ct times 0.5 hinv_band on the bands' diagonals and hinv_band
+        off them, then c * ct * x for each (c, x) of `tail`), system r's
+        all zero where its factor is sick. The sick-factor gate of
+        BandArrowEngine, system by system: the identity on a healthy
+        factor; a system whose pivot clamped, whose tail left its plain
+        route or whose hinv_band or tail entries are not finite drops its
+        own cotangents and leaves its neighbours alone."""
         dt, dev = f.L.dtype, f.L.device
-        hinv_band = self.ops.takahashi(f.L, f.rinv)         # (NR, d, bw+1)
         ct3 = ct[:, None, None]
-        if q:
-            Wm = self.ops.bwd_solve(f.L, f.rinv, f.Y.contiguous())
-            eye = torch.eye(q, dtype=dt, device=dev).expand(NR, q, q)
-            Sinv = _solve_Lt(f.Ls, _solve_L(f.Ls, eye))     # (NR, q, q)
-            A = Wm @ Sinv                                    # (NR, d, q)
-            corr = torch.zeros((NR, d, bw + 1), dtype=dt, device=dev)
-            for o in range(bw + 1):
-                corr[:, :d - o, o] = (A[:, o:] * Wm[:, :d - o]).sum(2)
-            hinv_band = hinv_band + corr
-            finite = _finite(hinv_band) & _finite(A) & _finite(Sinv)
-            ct_C = -ct3 * A
-            ct_Hd = (0.5 * ct3) * Sinv
-        else:
-            ct_C = torch.zeros((NR, d, 0), dtype=dt, device=dev)
-            ct_Hd = torch.zeros((NR, 0, 0), dtype=dt, device=dev)
-            finite = _finite(hinv_band)
-        w = torch.ones((1, 1, bw + 1), dtype=dt, device=dev)
+        finite = _finite(hinv_band)
+        for _, x in tail:
+            finite = finite & _finite(x)
+        w = torch.ones((1, 1, self.bw + 1), dtype=dt, device=dev)
         w[0, 0, 0] = 0.5
-        # sick-factor gate per system, as BandArrowEngine.hld_backward:
-        # the identity on a healthy factor; a system whose pivot clamped,
-        # whose tail left its plain route or whose selected inverse is
-        # not finite drops its own cotangents and leaves its neighbours
-        # alone
         okf = (~(f.clamped | f.tail_left) & finite).to(dt)[:, None, None]
 
         def san(x):
             return okf * torch.where(torch.isfinite(x), x,
                                      torch.zeros_like(x))
-        return san(ct3 * w * hinv_band), san(ct_C), san(ct_Hd)
+        return (san(ct3 * w * hinv_band),) + tuple(
+            san((c * ct3) * x) for c, x in tail)
 
-    def arrow_half_logdet(self, bands, C, Hd):
-        """Differentiable (NR,) half log-dets of the arrowheads."""
-        return _HalfLogdetBatched.apply(bands, C, Hd, self, None)
+    def schur_backward(self, f: BatchedFactor, ct):
+        """Cotangents of schur_half_logdet for (bands, S): ct times 0.5
+        Takahashi(Hb) on the bands' diagonals and Takahashi(Hb) off them,
+        and 0.5 ct S^{-1}; _gated."""
+        hinv_band = self.ops.takahashi(f.L, f.rinv)
+        if not self.q:
+            return (self._gated(f, ct, hinv_band, ())[0],
+                    hinv_band.new_zeros((self.NR, 0, 0)))
+        return self._gated(f, ct, hinv_band,
+                           ((0.5, self._tail_inverse(f)),))
 
-    def arrow_half_logdet_given(self, bands, C, Hd, f: BatchedFactor):
-        """arrow_half_logdet with a precomputed factor of the same
-        systems: the primal skips the factorization, the backward gives
-        the same cotangents from `f`."""
-        return _HalfLogdetBatched.apply(bands, C, Hd, self, f)
+    def schur_half_logdet(self, bands, S, f: BatchedFactor):
+        """Differentiable (NR,) half log-dets from the bands and the Schur
+        tails S (NR, q, q), given their factor f (factor(..., schur=...)):
+        0.5 log|Hb_r| + 0.5 log|S_r|, the tails' derivative taken through
+        S."""
+        return _SchurHalfLogdetBatched.apply(bands, S, self, f)
 
 
-class _HalfLogdetBatched(torch.autograd.Function):
+class _SchurHalfLogdetBatched(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, bands, C, Hd, engine, f):
-        if f is None:
-            f = engine.factor(bands, C, Hd)
+    def forward(ctx, bands, S, engine, f):
         ctx.engine, ctx.f = engine, f
         return engine.half_logdet(f)
 
     @staticmethod
     def backward(ctx, ct):
-        g_band, g_C, g_Hd = ctx.engine.hld_backward(ctx.f, ct)
-        return g_band, g_C, g_Hd, None, None
+        g_band, g_S = ctx.engine.schur_backward(ctx.f, ct)
+        return g_band, g_S, None, None
+

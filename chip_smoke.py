@@ -17,7 +17,8 @@ Phases (any failure raises and the script exits non-zero):
      K1-K4 bit for bit;
   3. a small fit on the card against the CPU-f64 reference values, and
      small replicate fits (R = 5 in groups of 2) packed against
-     sequential;
+     sequential, and on that design each replicate's half log-det at
+     theta_IWP = 30 and 40 against the one-response engine's;
   4. the headline fit: model_fit at n = 1e5, IWP order 3, k = 2000,
      Poisson, AGHQ k = 4, M = 3000, counting every kernel launch, its
      outer FD Hessian from several warm starts, and a profiled Laplace
@@ -67,7 +68,26 @@ Phases (any failure raises and the script exits non-zero):
  16. the tail-term cell: bench_scattered_iid's engine='banded' q = 512
      point (n = 5e4, k = 500, a 515-wide tail on K6/K7);
  17. a profiled merged-IID Laplace evaluation with its gradient at
-     MERGED_GATE_THETA, with K4's device time in it.
+     MERGED_GATE_THETA, with K4's device time in it;
+ 18. the dense route: the reference README covid fit (n = 787, IWP3
+     k = 30, Poisson, AGHQ k = 4, M = 3000, seed 1) twice, held to the
+     golden constants of tests/test_golden_covid.py at that file's
+     tolerances and the two fits held equal bit for bit; the post-fit
+     pins (summary, the t (SD) row of post_table, var_density) and a
+     save_fit/load_fit round trip; its wall, Laplace evaluations,
+     Newton steps, host syncs and peak device memory;
+ 19. the sGP lynx vignette fit (sGP k = 20 + IID, Poisson, two
+     hyperparameters, w = 171) against the port's CPU-f64 values, and
+     its predict spread;
+ 20. the dense route at its largest size: the bench.py generator at
+     n = 6,000, IWP3 k = 300, Poisson (n * basis ~ 1.8e6, just under the
+     2e6 at which engine='auto' leaves the dense route) fitted twice, a
+     Gaussian s = 2 variant and an nlminb fit of its fixed effects, each
+     held to the port's CPU-f64 fit of it (DENSE_CPU), and a profiled
+     cold Laplace evaluation.
+No kernel of K1-K11 is on the dense route (torch.linalg carries it, as
+XLA's Cholesky carries the JAX package's): phases 18-20 log the kernel
+launch counts, set to 0 before each and read after it.
 Phase 1 builds csrc/band_kernels.cu (K1-K5, K8-K11) and
 csrc/dense_kernels.cu (K6, K7) with two nvcc processes started together;
 phase 2 also checks K1 bit for bit with its one (farthest-first) plain
@@ -199,6 +219,37 @@ MERGED_FD_TOL = 0.05
 # cap), and the central-difference step of the Laplace values there
 TIGHT_STALL = 30
 FD_STEP = 1e-2
+
+# the dense route: the reference README covid fit and its golden values
+# (tests/test_golden_covid.py:18-29)
+COVID_FORMULA = ("new_deaths ~ weekdays1 + weekdays2 + weekdays3 + "
+                 "weekdays4 + weekdays5 + weekdays6 + "
+                 "f(t, model='IWP', order=3, k=30)")
+COVID_GOLDEN = {"mode": -3.245926, "lognormconst": -4322.531,
+                "quad_cov": 0.07936619, "mean": -3.271182,
+                "sd": 0.2785344, "q2.5": -3.87922, "median": -3.268308,
+                "q97.5": -2.760093,
+                "fixed_means": [-5.40445, 0.09375, 0.07922, 0.12672,
+                                0.12547, 0.05001, -0.15126]}
+# the sGP lynx vignette (tests/test_lynx.py) and the port's CPU-f64 fit
+# of it (tools/torch_dense_reference.py on an H100 host's CPU)
+LYNX_FORMULA = ("y ~ f(x=year, model='sGP', a=a_val, k=20, "
+                "sd_prior=dict(prior='exp', param=prior_SD, h=2), "
+                "boundary_prior=dict(prec=0.001)) + f(x=idx, model='IID', "
+                "sd_prior=dict(prior='exp', param=dict(u=1, alpha=0.01)))")
+LYNX_CPU = {"mode": [2.1430910976941253, 2.5811232633158716],
+            "lognormconst": -716.1395570242041}
+# the dense route's largest cell: n * (k - 1) just under 2e6, and the
+# port's CPU-f64 fits of phase 20's cases (tools/torch_dense_reference.py
+# on an H100 host's CPU)
+DENSE_N, DENSE_K = 6000, 300
+DENSE_CPU = {
+    "poisson": {"mode": [14.199925547526059],
+                "lognormconst": -13920.665911317137},
+    "gaussian": {"mode": [14.389798478906146, 1.826869652284661],
+                 "lognormconst": -2855.332805204258},
+    "nlminb": {"mean": [2.035771543892731, -0.003377647653748773]}}
+DENSE_MODE_TOL, DENSE_LNC_TOL, DENSE_MEAN_TOL = 1e-4, 1e-5, 1e-8
 
 
 T_START = time.perf_counter()
@@ -745,7 +796,7 @@ def replicate_ys(be, R, seed=1):
                      for _ in range(R)])
 
 
-def phase_small_replicates(reps, fit):
+def phase_small_replicates(reps, batched, fit):
     log("== phase 3 (replicates): n=2000, k=40, R=5 in groups of 2, packed "
         "against sequential")
     be = fit.mod.backend
@@ -759,6 +810,40 @@ def phase_small_replicates(reps, fit):
             "finite small replicate fits")
     require(dm < REPLICATE_TOL and dl < REPLICATE_TOL,
             "small replicate fits: packed agrees with sequential")
+    check_pinned_schur(batched, be, ys)
+
+
+def check_pinned_schur(batched, be, ys):
+    """Where the prior pins the driver (theta_IWP = 30 and 40), each
+    replicate's half log-det equals the one-response engine's to 1e-6:
+    both form the Schur tail as a Gram of residuals (ROADMAP Queue 3 #5;
+    tests/test_torch_fast_batched.py's check at n = 2000, k = 40)."""
+    b2 = batched.build_batched(be, ys[:2])
+    for t_iwp in (30.0, 40.0):
+        one, states, clamped = [], [], False
+        with torch.no_grad():
+            for r in range(2):
+                br = be.with_y(ys[r])
+                th = torch.tensor([t_iwp], dtype=torch.float64,
+                                  device=be.device)
+                st = br.laplace_nll(th)[1]
+                fr = br.hessian_factor(*st, th)
+                clamped |= bool(fr[0].clamped) or bool(fr[0].tail_left)
+                one.append(float(br.half_logdet_H(fr)))
+                states.append(st)
+            V, tail = (torch.stack(a) for a in zip(*states))
+            f = b2.hessian_factor(V, tail, torch.full(
+                (2,), t_iwp, dtype=torch.float64, device=be.device))
+            got = b2.half_logdet_H(f).cpu().numpy()
+        clamped |= bool((f[0].clamped | f[0].tail_left).any())
+        gap = float(np.abs(got - np.asarray(one)).max())
+        log(f"  theta_IWP = {t_iwp:g}: replicate half log-dets "
+            f"{np.round(got, 6).tolist()}, one-response "
+            f"{np.round(one, 6).tolist()}, max gap {gap:.3e} (tolerance "
+            f"1e-6); a pivot clamped or a tail off its plain route: "
+            f"{clamped}")
+        require(gap < 1e-6 and not clamped,
+                f"replicate half log-det at theta_IWP = {t_iwp:g}")
 
 
 def phase_headline(tbg, bk, dev):
@@ -1995,6 +2080,235 @@ def phase_tail_cell(tbg, bk, cd, dev):
     return wall, launches
 
 
+# -- the dense route --------------------------------------------------------
+def reset_all_launches(bk, bb, cd):
+    for mod in (bk, bb, cd):
+        mod.reset_launches()
+
+
+def kernel_launches(bk, bb, cd):
+    return {k: v for mod in (bk, bb, cd) for k, v in mod.launches.items()}
+
+
+def dense_fit(tbg, formula, **kw):
+    """(fit, wall s, the backend's counts, peak device MiB) of one
+    model_fit on the card; the peak is the allocator's above what earlier
+    phases still hold when the fit starts."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fit = tbg.model_fit(formula, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = dict(fit.mod.backend.stats) if hasattr(fit.mod, "backend") \
+        else {}
+    return fit, wall, stats, (torch.cuda.max_memory_allocated()
+                              - held) / 2 ** 20
+
+
+def log_dense_fit(label, wall, stats, peak):
+    log(f"  {label}: {wall:.3f} s wall; {stats.get('evals', 0)} Laplace "
+        f"evaluations, {stats.get('newton', 0)} Newton steps, "
+        f"{stats.get('syncs', 0)} host syncs; peak device memory "
+        f"{peak:.1f} MiB")
+
+
+def require_same_fit(label, a, b):
+    same = (np.array_equal(a.mod.mode, b.mod.mode)
+            and a.mod.lognormconst == b.mod.lognormconst
+            and np.array_equal(a.mod.lognll, b.mod.lognll)
+            and np.array_equal(a.samps, b.samps))
+    log(f"  {label}: the two fits equal bit for bit: {same}")
+    require(same, f"{label}: two fits on the card agree bit for bit")
+
+
+def phase_covid(tbg, dense_backend, kernels, dev):
+    log("== phase 18: the README covid fit on the dense route (n=787, "
+        "IWP3 k=30, Poisson, AGHQ k=4, M=3000)")
+    kernels[0]()
+    kw = dict(data=tbg.datasets.covid_canada(), family="Poisson",
+              method="aghq", M=3000, seed=1, device=dev, timing=True)
+    fit, wall1, st1, peak1 = dense_fit(tbg, COVID_FORMULA, **kw)
+    fit2, wall2, st2, peak2 = dense_fit(tbg, COVID_FORMULA, **kw)
+    log(f"  launches of K1-K11 in the two fits: {kernels[1]()}")
+    require(isinstance(fit.mod.backend, dense_backend),
+            "the covid fit takes the dense route")
+    log_dense_fit("fit 1", wall1, st1, peak1)
+    log_dense_fit("fit 2", wall2, st2, peak2)
+    log("  phases of fit 2:\n" + fit2.timing.summary())
+    require_same_fit("covid", fit, fit2)
+    g = COVID_GOLDEN
+    mode, lnc = float(fit.mod.mode[0]), float(fit.mod.lognormconst)
+    cov = float(np.linalg.inv(fit.mod.hessian)[0, 0])
+    ts = fit.theta_summary()["theta(t)"]
+    fx = fit.fixed_effects_summary()
+    log(f"  mode {mode:.6f} (golden {g['mode']}), lognormconst {lnc:.6f} "
+        f"(golden {g['lognormconst']}), quadrature cov {cov:.6f} (golden "
+        f"{g['quad_cov']})")
+    log(f"  theta(t): {ts}")
+    require(abs(mode - g["mode"]) < 5e-4, f"covid mode {mode}")
+    require(abs(lnc - g["lognormconst"]) < 2e-3, f"covid lnc {lnc}")
+    require(abs(cov - g["quad_cov"]) < 5e-3, f"covid quad cov {cov}")
+    for key, tol in (("mean", 1e-4), ("sd", 1e-3), ("median", 5e-3),
+                     ("q2.5", 1e-2), ("q97.5", 1e-2)):
+        require(abs(ts[key] - g[key]) < tol, f"covid theta {key}")
+    names = ["intercept"] + [f"weekdays{i}" for i in range(1, 7)]
+    for name, want, tol in zip(names, g["fixed_means"],
+                               [0.15] + [0.004] * 6):
+        require(abs(fx[name]["Mean"] - want) < tol,
+                f"covid fixed mean {name}: {fx[name]['Mean']}")
+    # the post-fit pins of tests/test_golden_covid.py
+    text = fit.summary()
+    require("AGHQ on a 1 dimensional posterior with  4 quadrature points"
+            in text and "theta(t)" in text, "covid summary text")
+    row = [r for r in fit.post_table() if r["name"] == "t (SD)"][0]
+    log(f"  post_table t (SD): {row}")
+    require(np.allclose([row["median"], row["q0.025"], row["q0.975"]],
+                        [5.105, 3.943, 6.897], atol=0.02),
+            "covid post_table t (SD) row")
+    vd = fit.var_density(component="t")
+    sd_mode = float(vd["SD"][np.argmax(vd["post"])])
+    mass = float(np.trapezoid(vd["post"], vd["SD"]))
+    log(f"  var_density: mass {mass:.5f}, SD mode {sd_mode:.4f}, peak "
+        f"{float(vd['post'].max()):.5f}")
+    require(abs(mass - 1.0) < 0.01 and np.allclose(
+        [sd_mode, float(vd["post"].max())], [4.9808, 0.60777], atol=0.02),
+        "covid var_density pins")
+    for degree in (0, 1, 2):
+        pr = fit.predict("t", degree=degree)
+        require(len(pr["mean"]) == 787 and np.all(np.isfinite(pr["mean"])),
+                f"covid predict degree {degree}")
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "bayesgp_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    path = os.path.join(build, "covid_fit.npz")
+    tbg.save_fit(fit, path)
+    back = tbg.load_fit(path)
+    os.remove(path)
+    new = {"t": np.linspace(0.0, 700.0, 41)}
+    same = (back.mod.lognormconst == fit.mod.lognormconst
+            and np.array_equal(back.samps, fit.samps)
+            and np.array_equal(back.predict("t", newdata=new)["mean"],
+                               fit.predict("t", newdata=new)["mean"]))
+    log(f"  save_fit/load_fit round trip, predict after the load equal: "
+        f"{same}")
+    require(same, "covid save/load round trip")
+    return wall1, wall2, st1
+
+
+def lynx_kwargs(tbg):
+    lynx = tbg.datasets.lynx()
+    prior_SD = tbg.prior_conversion_sgp(d=50, prior={"u": 1.0,
+                                                     "alpha": 0.01},
+                                        a=2 * np.pi / 10)
+    return dict(data={"year": lynx["year"], "y": lynx["count"],
+                      "idx": np.arange(len(lynx["year"]), dtype=float)},
+                family="Poisson", method="aghq", M=500,
+                env={"a_val": 2 * np.pi / 10, "prior_SD": prior_SD},
+                control_fixed={"intercept": {"prec": 0.001, "mean": 0}})
+
+
+def phase_lynx(tbg, dense_backend, kernels, dev):
+    log("== phase 19: the sGP lynx vignette on the dense route (sGP k=20 "
+        "+ IID, Poisson, w=171, two hyperparameters)")
+    kernels[0]()
+    fit, wall, stats, peak = dense_fit(tbg, LYNX_FORMULA, device=dev,
+                                       **lynx_kwargs(tbg))
+    log(f"  launches of K1-K11 in the fit: {kernels[1]()}")
+    require(isinstance(fit.mod.backend, dense_backend),
+            "the lynx fit takes the dense route")
+    log_dense_fit("fit", wall, stats, peak)
+    gap_mode = np.abs(fit.mod.mode - LYNX_CPU["mode"]).max()
+    gap_lnc = abs(fit.mod.lognormconst - LYNX_CPU["lognormconst"])
+    log(f"  mode {np.round(fit.mod.mode, 9).tolist()}, lognormconst "
+        f"{fit.mod.lognormconst:.9f}; against the port's CPU-f64 fit: "
+        f"mode {gap_mode:.3e} (tolerance 1e-4), lognormconst {gap_lnc:.3e} "
+        "(tolerance 1e-5)")
+    require(gap_mode < 1e-4 and gap_lnc < 1e-5, "lynx against the CPU fit")
+    pred = fit.predict("year")
+    spread = float(pred["mean"].max() - pred["mean"].min())
+    log(f"  predict('year') spread {spread:.4f} (> 1.5)")
+    require(spread > 1.5, "lynx predict spread")
+    require(np.all(np.isfinite(fit.var_density(component="year")["post"])),
+            "lynx var_density finite")
+    return wall
+
+
+def dense_boundary_cases():
+    """(label, formula, model_fit keywords but the device) of phase 20's
+    fits: the Poisson s = 1 cell, a Gaussian response on its design (the
+    noise theta makes s = 2) and an nlminb fit of its fixed effects.
+    tools/torch_dense_reference.py runs the same on the CPU."""
+    data = bench_data(DENSE_N)
+    rng = np.random.default_rng(1)
+    gdata = dict(data, y=np.log1p(data["y"]) + 0.1 * rng.normal(
+        size=DENSE_N))
+    formula = FORMULA.format(k=DENSE_K)
+    kw = dict(method="aghq", M=M_DRAWS, seed=0)
+    return (("poisson", formula, dict(kw, data=data, family="Poisson")),
+            ("gaussian", formula, dict(kw, data=gdata, family="Gaussian")),
+            ("nlminb", "y ~ z", dict(kw, data=data, family="Poisson",
+                                     method="nlminb")))
+
+
+def dense_result(fit):
+    """The numbers phase 20 holds to the CPU: the mode and lognormconst
+    of an AGHQ fit, the mean of an nlminb fit."""
+    if isinstance(fit.mod, dict):
+        return {"mean": np.asarray(fit.mod["mean"], float).tolist()}
+    return {"mode": np.asarray(fit.mod.mode, float).tolist(),
+            "lognormconst": float(fit.mod.lognormconst)}
+
+
+def require_dense_cpu(label, fit):
+    """Hold one of phase 20's card fits to the port's CPU-f64 fit
+    (DENSE_CPU): modes DENSE_MODE_TOL, lognormconsts DENSE_LNC_TOL, the
+    nlminb mean DENSE_MEAN_TOL, all absolute."""
+    got, want = dense_result(fit), DENSE_CPU[label]
+    tols = {"mode": DENSE_MODE_TOL, "lognormconst": DENSE_LNC_TOL,
+            "mean": DENSE_MEAN_TOL}
+    for key, ref in want.items():
+        gap = float(np.abs(np.asarray(got[key]) - np.asarray(ref)).max())
+        log(f"  {label} {key}: {np.round(got[key], 9).tolist()}, CPU-f64 "
+            f"{np.round(ref, 9).tolist()}, gap {gap:.3e} (tolerance "
+            f"{tols[key]:g})")
+        require(gap < tols[key], f"boundary {label} {key} against the CPU")
+
+
+def phase_dense_boundary(tbg, dense_backend, kernels, dev):
+    log(f"== phase 20: the dense route at its largest size (n={DENSE_N}, "
+        f"IWP3 k={DENSE_K}, Poisson; n*(k-1) = {DENSE_N * (DENSE_K - 1)})")
+    (_, formula, pkw), (_, _, gkw), (_, nform, nkw) = dense_boundary_cases()
+    kernels[0]()
+    fit, wall1, st1, peak1 = dense_fit(tbg, formula, device=dev, **pkw)
+    fit2, wall2, st2, peak2 = dense_fit(tbg, formula, device=dev, **pkw)
+    log(f"  launches of K1-K11 in the two fits: {kernels[1]()}")
+    be = fit.mod.backend
+    require(isinstance(be, dense_backend), "the boundary cell takes the "
+            "dense route under engine='auto'")
+    log_dense_fit("Poisson s=1 fit 1", wall1, st1, peak1)
+    log_dense_fit("Poisson s=1 fit 2", wall2, st2, peak2)
+    log(f"  w = {be.md.w_count}")
+    require_same_fit("boundary Poisson", fit, fit2)
+    require(np.all(np.isfinite(fit.samps)), "boundary Poisson draws")
+    require_dense_cpu("poisson", fit)
+    gfit, gwall, gst, gpeak = dense_fit(tbg, formula, device=dev, **gkw)
+    log_dense_fit("Gaussian s=2 fit", gwall, gst, gpeak)
+    require(np.all(np.isfinite(gfit.samps)), "boundary Gaussian draws")
+    require_dense_cpu("gaussian", gfit)
+    nfit, nwall, _, npeak = dense_fit(tbg, nform, device=dev, **nkw)
+    log(f"  nlminb fit of the fixed effects: {nwall:.3f} s wall, peak "
+        f"{npeak:.1f} MiB")
+    require(np.all(np.isfinite(nfit.samps)), "boundary nlminb draws")
+    require_dense_cpu("nlminb", nfit)
+    th = torch.tensor(fit.mod.mode, dtype=torch.float64, device=dev)
+    profile_run("one Laplace evaluation with its gradient, cold start, "
+                "dense boundary cell",
+                lambda: be.value_and_grad(th, be.init_state()))
+    return wall1, wall2, gwall, nwall
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2013,6 +2327,7 @@ def main():
     from bayesgp_torch.linalg import chol_dense as cd
     from bayesgp_torch.parallel import replicates as reps
     from bayesgp_torch import terms
+    from bayesgp_torch.inference.aghq import DenseBackend
 
     dev = torch.device("cuda:0")
     card = gpu_line()
@@ -2033,7 +2348,7 @@ def main():
     rows.update(phase_dense_kernels(cd, dev))
     rows.update(phase_chunked_kernels(bk, dev))
     small = phase_small_fit(tbg, dev)
-    phase_small_replicates(reps, small)
+    phase_small_replicates(reps, batched, small)
     fit, launches, wall1, wall2 = phase_headline(tbg, bk, dev)
     phase_fixed_point(bk, fit)
     be = fit.mod.backend
@@ -2074,6 +2389,11 @@ def main():
             f"{k4_n} launches ({100 * k4_ms / 1e3 / prof[1]:.1f}% of "
             f"{prof[1] * 1e3:.1f} ms busy)")
         require(k4_n > 0, "K4 ran in the merged evaluation")
+    counts = (lambda: reset_all_launches(bk, bb, cd),
+              lambda: kernel_launches(bk, bb, cd))
+    cwall1, cwall2, cstats = phase_covid(tbg, DenseBackend, counts, dev)
+    lwall = phase_lynx(tbg, DenseBackend, counts, dev)
+    dwalls = phase_dense_boundary(tbg, DenseBackend, counts, dev)
 
     kernels = []
     for name, r in rows.items():
@@ -2110,6 +2430,10 @@ def main():
     log(f"merged-IID headline fit wall s: first {mwall1:.3f}, second "
         f"{mwall2:.3f}; tail-term cell {twall:.3f} (launches "
         f"{tail_launches})")
+    log(f"dense route wall s: covid first {cwall1:.3f}, second "
+        f"{cwall2:.3f} ({cstats}); lynx {lwall:.3f}; boundary cell Poisson "
+        f"first {dwalls[0]:.3f}, second {dwalls[1]:.3f}, Gaussian s=2 "
+        f"{dwalls[2]:.3f}, nlminb {dwalls[3]:.3f}")
     log(f"script wall s: {time.perf_counter() - T_START:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())

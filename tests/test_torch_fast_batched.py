@@ -8,6 +8,12 @@ states 1e-7 (both sides converge an f64 inner Newton to ~1e-9); against
 the port's one-response backend the same bounds (measured ~1e-13: only
 the order of the batched sums differs).
 
+Where the prior pins the driver (theta_IWP = 30 and 40, n = 2000, k =
+40) each replicate's half log-det equals the one-response backend's to
+1e-6: both form the Schur tail as a Gram of residuals (ROADMAP Queue 3
+#5; formed as Hd - Y^T Y the replicate engine was 3e-5 and 6e-5 off at
+theta_IWP = 40).
+
 Three tests, on purpose: pytest-xdist's file scheduler hands out files in
 order of their test counts, and a file of few tests lands at the end of
 the queue, where it cannot delay the long files of the JAX package.
@@ -104,6 +110,7 @@ def test_each_replicate_matches_one_response_backend():
         pair = _pair(family)
         _check_each_replicate_matches_one_response_backend(pair)
         _check_laplace_eval_full_and_solve_per_replicate(pair)
+    _check_schur_tail_where_the_prior_pins_the_driver()
 
 
 def _check_nll_gradient_and_states_match_jax(pair):
@@ -161,6 +168,37 @@ def _check_laplace_eval_full_and_solve_per_replicate(pair):
         np.testing.assert_allclose(zd[r].numpy(), zdr.numpy(), rtol=1e-9,
                                    atol=1e-10)
         assert abs(float(hld[r]) - float(br.half_logdet_H(fr))) < 1e-9
+
+
+def _check_schur_tail_where_the_prior_pins_the_driver(n=2000, k=40):
+    """Replicate half log-dets at theta_IWP = 30 and 40, each at its own
+    one-response mode, against the one-response backend's."""
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(0.0, 365.0, n))
+    ys = rng.poisson(np.exp(1.5 + 0.8 * np.sin(2 * np.pi * x / 90.0)),
+                     size=(2, n)).astype(np.float64)
+    inst = tterms.build_iwp_term("x", x, order=3, k=k)
+    dmf = [np.ones((n, 1)), rng.normal(size=(n, 1))]
+    md = tbuild.build_model_data([inst], dmf, ys[0], "Poisson",
+                                 dense_design=False)
+    xf = np.concatenate([inst.X] + dmf, axis=1)
+    pt = np.full(xf.shape[1], 0.01)
+    base = build_fast_iwp(inst, md, xf, pt, np.zeros_like(pt), inst.x_data,
+                          device="cpu")
+    tb = build_batched(base, ys)
+    for t_iwp in (30.0, 40.0):
+        one, states = [], []
+        for r in range(2):
+            br = base.with_y(ys[r])
+            th = torch.tensor([t_iwp])
+            st = br.laplace_nll(th)[1]
+            one.append(float(br.half_logdet_H(br.hessian_factor(*st, th))))
+            states.append(st)
+        V, tail = (torch.stack(a) for a in zip(*states))
+        f = tb.hessian_factor(V, tail, torch.tensor([t_iwp, t_iwp]))
+        assert not bool(f[0].tail_left.any())
+        np.testing.assert_allclose(tb.half_logdet_H(f).numpy(), one,
+                                   rtol=0, atol=1e-6)
 
 
 def test_max_replicates_is_a_memory_cap():

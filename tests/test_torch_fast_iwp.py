@@ -5,10 +5,12 @@ packages from the same numpy data.
 Tolerances: build arrays rtol 1e-12 (same host numpy arithmetic);
 objective rtol 1e-10; Laplace nll rtol 1e-9 and its theta-gradient
 rtol 1e-7 (both sides converge an f64 inner Newton to ~1e-9). The JAX
-functions are jitted with _jax_quick.quick_jit.
+functions are jitted with _jax_quick.quick_jit; one program gives the
+module's Laplace values, gradients and latent states.
 """
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -47,6 +49,13 @@ def pair():
     jbe = _problem(jterms, jbuild, jbuild_fast_iwp)
     tbe = _problem(tterms, tbuild, build_fast_iwp, device="cpu")
     return jbe, tbe
+
+
+@pytest.fixture(scope="module")
+def jax_vg(pair):
+    """The JAX backend's cold Laplace nll, its theta gradient and its
+    latent state, one program for the module's tests."""
+    return quick_jit(jax.value_and_grad(pair[0].laplace_nll, has_aux=True))
 
 
 def _jax_arrays(be):
@@ -111,11 +120,10 @@ def test_neg_log_post_matches(pair):
                                PV @ V, rtol=1e-10, atol=1e-10)
 
 
-def test_laplace_nll_and_gradient_match(pair):
+def test_laplace_nll_and_gradient_match(pair, jax_vg):
     jbe, tbe = pair
-    vg = jbe.val_grad_fn()
     for th in THETAS:
-        vj, gj = vg(jnp.asarray([th]))
+        (vj, _), gj = jax_vg(jnp.asarray([th]))
         vt, gt, _ = tbe.value_and_grad(torch.tensor([th], dtype=torch.float64),
                                        tbe.init_state())
         assert np.isclose(float(vt), float(vj), rtol=1e-9), (th, vt, vj)
@@ -123,16 +131,15 @@ def test_laplace_nll_and_gradient_match(pair):
                                    atol=1e-9)
 
 
-def test_convert_backend_gives_same_nll(pair):
+def test_convert_backend_gives_same_nll(pair, jax_vg):
     """A port backend built from the JAX backend's numpy arrays gives
     the same Laplace nll, and a converted JAX latent state warm-starts
     it at the same value."""
     jbe, tbe = pair
     cbe = convert.fast_iwp_from_arrays(_jax_arrays(jbe), term=tbe.term,
                                        device="cpu")
-    nll = quick_jit(jbe.laplace_nll)
     for th in THETAS:
-        vj, (Vj, tj) = nll(np.asarray([th]))
+        (vj, (Vj, tj)), _ = jax_vg(jnp.asarray([th]))
         vc, _ = cbe.laplace_nll(torch.tensor([th], dtype=torch.float64))
         vt, _ = tbe.laplace_nll(torch.tensor([th], dtype=torch.float64))
         assert np.isclose(float(vc), float(vj), rtol=1e-9)

@@ -74,9 +74,12 @@ def test_posterior_summaries_match_jax(fits):
 
 def test_unported_routes_raise():
     data = _data(n=200)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tbg.model_fit(FORMULA, data=data, family="Poisson",
-                      engine="dense", device="cpu")
+    # the dense route is ported: engine="dense" fits on it
+    fit = tbg.model_fit(FORMULA, data=data, family="Poisson",
+                        engine="dense", M=200, device="cpu")
+    assert type(fit.mod.backend).__name__ == "DenseBackend"
+    assert np.isfinite(fit.mod.lognormconst)
+    assert fit.samps.shape == (fit.md.w_count, 200)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         tbg.model_fit(FORMULA, data=data, family="Poisson", method="MCMC",
                       device="cpu")
