@@ -211,8 +211,7 @@ def _backend(asm, engine, device):
     banded single-IWP backend for one IWP smooth; with engine=
     'scatter_iid' the diagonal-first IID backend; else the multi-term
     banded backend, and the scatter_iid backend where that refuses the
-    model (a large IID term whose levels scatter over x). Raise for the
-    routes not ported yet."""
+    model (a large IID term whose levels scatter over x)."""
     from .fast.iwp import build_fast_iwp
     from .fast.banded import build_banded_backend
     from .fast.scatter_iid import build_scatter_iid
@@ -224,9 +223,6 @@ def _backend(asm, engine, device):
     if engine == "scatter_iid":
         return build_scatter_iid(*args, device=device)
     if len(instances) == 1 and instances[0].kind == "IWP":
-        if md.n_theta != 1:
-            raise _unported("the Gaussian family's noise hyperparameter on "
-                            "the banded backend", 6)
         inst = instances[0]
         xf_dense = np.concatenate(
             [inst.X] + [np.asarray(c) for c in asm["design_mat_fixed"]],
@@ -285,14 +281,15 @@ def model_fit(formula=None, data=None, method: str = "aghq",
       route, which engine='auto' picks for small models (n * basis size
       <= 2e6, at most 300 basis functions, no lazy IID term) and
       engine='dense' always;
-    - method='aghq', with no noise hyperparameter (Poisson, Binomial), on
-      the banded routes at scale or with engine='banded': one IWP smooth
-      with fixed effects (the banded single-IWP engine); an IWP smooth
-      with other terms (the multi-term banded engine: a large IID term
-      clustered in x merged into the band, other terms in a dense tail);
-      and, where the merge refuses an IID term of more than 4,000 levels,
-      or with engine='scatter_iid', one IWP smooth plus one IID term (the
-      scattered-IID engine);
+    - method='aghq' on the banded routes at scale or with
+      engine='banded' (a Gaussian response adds its noise theta last):
+      one IWP smooth with fixed effects (the banded single-IWP engine);
+      an IWP or sGP smooth with other terms (the multi-term banded
+      engine: the larger smooth drives the band, a large IID term
+      clustered in x merges into an IWP driver's band, other terms go to
+      a dense tail); and, where the merge refuses an IID term of more
+      than 4,000 levels, or with engine='scatter_iid', one IWP smooth
+      plus one IID term (the scattered-IID engine);
     - method='nlminb' for a model with no hyperparameter: the posterior
       mode of W and M draws from the Gaussian at its Hessian.
 

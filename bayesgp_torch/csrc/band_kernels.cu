@@ -459,7 +459,10 @@ __global__ void __launch_bounds__(32 * MAXW)
 band_solve_warp(const double* __restrict__ L,
                 const double* __restrict__ rinv,
                 const double* __restrict__ B, double* __restrict__ X,
-                int d, int bw, int r) {
+                int d, int bw, int r,
+                const unsigned char* __restrict__ gate) {
+    // a gated solve (K1's re-solve) does nothing where the gate is 0
+    if (gate != nullptr && *gate == 0) return;
     extern __shared__ double sm[];       // the ring: NT tiles of W
     constexpr int P = 32 * NS;           // window of pending positions
     constexpr unsigned FULL = 0xffffffffu;
@@ -654,7 +657,8 @@ template <int BW, bool CAP>
 __global__ void __launch_bounds__(RHS_THREADS)
 band_fwd_far(const double* __restrict__ L, const double* __restrict__ rinv,
              const double* __restrict__ B, double* __restrict__ X, int d,
-             int r, int ft) {
+             int r, int ft, const unsigned char* __restrict__ gate) {
+    if (gate != nullptr && *gate == 0) return;   // as in band_solve_warp
     constexpr int W = BW + 1;
     extern __shared__ double sm[];
     const int nt = blockDim.x, tx = threadIdx.x;
@@ -1472,7 +1476,7 @@ int warp_block(int r) { return r <= 4 ? 1 : WS_WARPS; }
 template <int BW, bool CAP>
 cudaError_t launch_far(bool bwd, const double* L, const double* rinv,
                        const double* B, double* X, int nsys, int d, int r,
-                       cudaStream_t st) {
+                       cudaStream_t st, const unsigned char* gate) {
     const int nt = rhs_threads(r);
     const int ft = min(128, 4096 / nt);
     const dim3 grid((r + nt - 1) / nt, nsys);
@@ -1488,14 +1492,14 @@ cudaError_t launch_far(bool bwd, const double* L, const double* rinv,
         e = allow_smem(band_fwd_far<BW, CAP>, smem);
         if (e != cudaSuccess) return e;
         band_fwd_far<BW, CAP><<<grid, nt, smem, st>>>(L, rinv, B, X, d, r,
-                                                      ft);
+                                                      ft, gate);
     }
     return cudaGetLastError();
 }
 
 using FarLaunch = cudaError_t (*)(bool, const double*, const double*,
                                   const double*, double*, int, int, int,
-                                  cudaStream_t);
+                                  cudaStream_t, const unsigned char*);
 using FactorLaunch = cudaError_t (*)(const double*, const double*, double*,
                                      double*, double*, double*, double*,
                                      int*, int, int, cudaStream_t);
@@ -1556,14 +1560,15 @@ cudaError_t launch_takahashi(const double* L, const double* rinv, double* Z,
 template <int NS, bool BWD, int MAXW, bool CAP>
 cudaError_t launch_solve_warp(const double* L, const double* rinv,
                               const double* B, double* X, int nsys, int d,
-                              int bw, int r, int warps, cudaStream_t st) {
+                              int bw, int r, int warps, cudaStream_t st,
+                              const unsigned char* gate) {
     const size_t rows = BWD && NS <= 2 ? WS_ROWS : WS_RING * WS_TILE;
     const size_t smem = sizeof(double) * rows * (size_t)(bw + 1);
     cudaError_t e = allow_smem(band_solve_warp<NS, BWD, MAXW, CAP>, smem);
     if (e != cudaSuccess) return e;
     const dim3 grid((r + warps - 1) / warps, nsys);
     band_solve_warp<NS, BWD, MAXW, CAP><<<grid, 32 * warps, smem, st>>>(
-        L, rinv, B, X, d, bw, r);
+        L, rinv, B, X, d, bw, r, gate);
     return cudaGetLastError();
 }
 
@@ -1571,33 +1576,35 @@ cudaError_t launch_solve_warp(const double* L, const double* rinv,
 template <bool BWD, int MAXW, bool CAP = false>
 cudaError_t launch_warp(const double* L, const double* rinv, const double* B,
                         double* X, int nsys, int d, int bw, int r, int warps,
-                        cudaStream_t st) {
+                        cudaStream_t st, const unsigned char* gate = nullptr) {
     if (warps < 1 || warps > MAXW) return cudaErrorInvalidValue;
     if (bw < 32)
         return launch_solve_warp<1, BWD, MAXW, CAP>(L, rinv, B, X, nsys, d,
-                                                    bw, r, warps, st);
+                                                    bw, r, warps, st, gate);
     if (bw < 64)
         return launch_solve_warp<2, BWD, MAXW, CAP>(L, rinv, B, X, nsys, d,
-                                                    bw, r, warps, st);
+                                                    bw, r, warps, st, gate);
     if (bw < 128)
         return launch_solve_warp<4, BWD, MAXW, CAP>(L, rinv, B, X, nsys, d,
-                                                    bw, r, warps, st);
+                                                    bw, r, warps, st, gate);
     return cudaErrorInvalidValue;
 }
 
 // Every solve, in one order (farthest-first): forward (K2, K9; with CAP
 // K1's tail solve) or backward (K3, K5, K10), nsys systems of r
 // right-hand sides, warp_block(r) of them a block of the warp kernel (bw
-// > SMALL_BW)
+// > SMALL_BW). A forward solve given a device gate returns at once where
+// *gate is 0, leaving X as it was.
 template <bool BWD, bool CAP = false>
 cudaError_t launch_solve(const double* L, const double* rinv,
                          const double* B, double* X, int nsys, int d,
-                         int bw, int r, cudaStream_t st) {
+                         int bw, int r, cudaStream_t st,
+                         const unsigned char* gate = nullptr) {
     if (bw >= 1 && bw <= SMALL_BW)
         return (CAP ? kFarCap : kFar)[bw](BWD, L, rinv, B, X, nsys, d, r,
-                                          st);
+                                          st, gate);
     return launch_warp<BWD, WS_WARPS, CAP>(L, rinv, B, X, nsys, d, bw, r,
-                                           warp_block(r), st);
+                                           warp_block(r), st, gate);
 }
 
 // bulk warps of the wide factor: about six table entries a bulk thread a
@@ -1701,6 +1708,17 @@ int bgt_band_fwd_solve(const double* L, const double* rinv, const double* B,
                        double* X, int d, int bw, int r, void* stream) {
     return (int)launch_solve<false>(L, rinv, B, X, 1, d, bw, r,
                                     (cudaStream_t)stream);
+}
+
+// K2 where a device flag is set: X = L^{-1} B where *gate != 0 (K1
+// clamped a pivot); where it is 0 every block returns at once and X
+// keeps what it held (K1's Y)
+int bgt_band_fwd_solve_gated(const double* L, const double* rinv,
+                             const double* B, double* X,
+                             const unsigned char* gate, int d, int bw, int r,
+                             void* stream) {
+    return (int)launch_solve<false>(L, rinv, B, X, 1, d, bw, r,
+                                    (cudaStream_t)stream, gate);
 }
 
 int bgt_band_bwd_solve(const double* L, const double* rinv, const double* B,

@@ -1,7 +1,7 @@
-"""Multi-term banded backend: one IWP driver term in a band, the other
-terms in a dense tail.
+"""Multi-term banded backend: one IWP or sGP driver term in a band, the
+other terms in a dense tail.
 
-The counterpart of bayesgp_tpu/fast/banded.py for an IWP driver. The
+The counterpart of bayesgp_tpu/fast/banded.py. The
 latent is split as
 
     [ V (driver coefficients, banded coupling) | tail t ]
@@ -28,13 +28,24 @@ over x are refused there; up to 4,000 of them are then densified into the
 tail with a warning, and above that the model goes to the scatter_iid
 engine (api.py).
 
+sGP driver. The sB design [B cos | B sin | B] x m harmonics is reordered
+by interleaving its G = 3m groups per B-spline index (_sgp_interleave_perm):
+every data row then touches one contiguous window of Wl = 4G columns and
+the precision Q, block-diagonal over harmonics, becomes banded with the
+same width. There is no coordinate change (U = V in interleaved order,
+logdetT = 0); the samples return to the reference order through the
+permutation. The prior's quadratic is a sum of squares as for an IWP
+driver: Tdiags holds the band of a root T of Q (T^T T = Q, T lower,
+prior_w = 1), taken from a banded Cholesky of the reversed Q, and
+`T_is_root` keeps `sample` from applying it.
+
 The O(n) products, the prior, the inner Newton and the implicit-function
 theta gradient are fast/iwp.FastIWPBackend's, which this class extends
 with the driver's theta index, the diagonal band terms and the tail
 terms' priors. Its `p` is the band's width less one (Wl - 1), not the
-IWP order. The TPU package's MXU chunk design, mixed compute dtype, data
-sharding and fused s > 1 programs are not ported; an sGP driver and the
-Gaussian family's noise hyperparameter are not ported yet.
+IWP order. The likelihood is any elementwise family; the Gaussian's
+noise theta comes last. The TPU package's MXU chunk design, mixed
+compute dtype, data sharding and fused s > 1 programs are not ported.
 """
 from __future__ import annotations
 
@@ -54,12 +65,6 @@ from .iwp import FastIWPBackend
 # a refused merge densifies the IID term into the tail up to this many
 # levels; above it the model needs the scatter_iid engine
 DENSIFY_MAX = 4000
-
-
-def _unported(what):
-    return NotImplementedError(
-        f"{what} on the multi-term banded backend is not ported to "
-        "bayesgp_torch yet (ROADMAP Queue 1 item 6)")
 
 
 def _choose_block(d: int, bw: int) -> int:
@@ -109,6 +114,7 @@ class BandedBackend(FastIWPBackend):
     Z0PZ0_pad: Any = None       # (q, q) Z0^T diag(prior_diag_band) Z0
     w_real: Optional[int] = None  # real latent coordinates (no padding)
     ref_perm: Any = None        # (w_ref,) backend -> reference rows
+    T_is_root: bool = False     # Tdiags is the prior's root only (sGP)
 
     def __post_init__(self):
         super().__post_init__()
@@ -127,6 +133,18 @@ class BandedBackend(FastIWPBackend):
     @property
     def Wl(self):
         return self.p + 1
+
+    @property
+    def em_dims(self):
+        """Per-theta penalized dimensions (see FastIWPBackend.em_dims):
+        the driver's d_drv, each tail or band term's size at its theta
+        index, and n for the Gaussian noise theta."""
+        dims = np.zeros(self.n_theta)
+        dims[self.drv_theta] = self.d_drv
+        for t in self.tail_terms + self.band_terms:
+            dims[t.theta_idx] = t.d_size
+        dims[dims == 0] = self.md.n
+        return dims
 
     @property
     def w_count(self):
@@ -263,6 +281,11 @@ class BandedBackend(FastIWPBackend):
         return self.Bt(r) + self._pad_d(g), gt
 
     # -- posterior draws --------------------------------------------------
+    def to_U(self, V):
+        """Reference coefficients of the driver: T V, or V itself where T
+        is only the prior's root (an sGP driver)."""
+        return V if self.T_is_root else self.apply_T(V)
+
     def sample(self, states, idx, zb, zd):
         """(w_ref, M) mixture draws in reference order (padded merged
         slots dropped); see FastIWPBackend.sample."""
@@ -272,6 +295,125 @@ class BandedBackend(FastIWPBackend):
 # ---------------------------------------------------------------------------
 # host build (numpy, f64)
 # ---------------------------------------------------------------------------
+
+def _sgp_interleave_perm(kb: int, G: int) -> np.ndarray:
+    """perm[j_inter] = j_group for the group -> interleaved reorder. Group
+    order (the reference's layout): column g*kb + b (g = 3*(i-1) + {cos,
+    sin, plain} of harmonic i, b the B-spline index); interleaved: column
+    b*G + g."""
+    j_group = np.arange(kb * G).reshape(G, kb)      # [g, b]
+    return j_group.T.reshape(-1)                    # [b*G + g]
+
+
+def _band_from_dense(P: np.ndarray, bw: int) -> np.ndarray:
+    """(bw+1, d) lower band storage of P; asserts bandedness."""
+    d = P.shape[0]
+    band = np.zeros((bw + 1, d))
+    for o in range(bw + 1):
+        band[o, :d - o] = np.diagonal(P, -o)
+    if d > bw + 1:
+        tail = np.tril(P, -(bw + 1))
+        assert np.abs(tail).max() <= 1e-9 * max(1.0, np.abs(P).max()), \
+            "driver precision is not banded at the declared bandwidth"
+    return band
+
+
+def _band_root(P_band: np.ndarray) -> np.ndarray:
+    """(W, d) band of the lower root T of the banded SPD P (T^T T = P),
+    as FastIWPBackend.Tdiags stores it ([o, j] = T[j, j-o]): the Cholesky
+    factor L' of the reversed matrix J P J gives T = J L'^T J."""
+    from scipy.linalg import cholesky_banded
+
+    W, d = P_band.shape
+    rev = np.zeros_like(P_band)
+    for o in range(W):
+        rev[o, :d - o] = P_band[o, :d - o][::-1]
+    Lr = cholesky_banded(rev, lower=True)
+    T = np.zeros_like(P_band)
+    for o in range(W):
+        T[o, o:] = Lr[o, :d - o][::-1]
+    return T
+
+
+def _sgp_sparse_rows(term):
+    """Sparse-window rows of the interleaved sB design: (vals (n, W),
+    start (n,), kb, G), row i of the interleaved design equal to vals[i]
+    at columns start[i]..start[i]+W-1. All 3m groups share the 4-wide
+    B-spline support, so interleaving makes it one contiguous 4G window.
+    A term built without its dense design (materialize_B=False) takes
+    its windows from x (_sgp_sparse_rows_from_x); otherwise they are cut
+    from term.B."""
+    if term.B is None and term.x_data is not None:
+        return _sgp_sparse_rows_from_x(term)
+    Bg = np.asarray(term.ensure_B(), np.float64)   # (n, 3m*kb), group order
+    G = 3 * term.m
+    kb = Bg.shape[1] // G
+    if kb < 4:
+        raise ValueError("an sGP banded driver needs k >= 6 (kb >= 4)")
+    Bi = Bg[:, _sgp_interleave_perm(kb, G)]
+    W, n = 4 * G, Bi.shape[0]
+    # first active B-spline index of each row, from the plain block
+    nz = Bg[:, 2 * kb:3 * kb] != 0.0
+    first = np.where(nz.any(axis=1), nz.argmax(axis=1), 0)
+    start = (np.clip(first, 0, kb - 4) * G).astype(np.int64)
+    vals = Bi[np.arange(n)[:, None], start[:, None] + np.arange(W)[None, :]]
+    total, covered = np.abs(Bi).sum(), np.abs(vals).sum()
+    assert abs(total - covered) <= 1e-9 * max(total, 1.0), \
+        "sGP window extraction missed design mass"
+    return vals, start, kb, G
+
+
+def _sgp_sparse_rows_from_x(term):
+    """_sgp_sparse_rows from the (shifted) x values in O(n), never forming
+    the dense (n, 3m kb) design: each sB group column is a B-spline column
+    times a row's cos/sin/1 multiplier, so row i's 4G window is the outer
+    product of its 4 B-spline values with its G multipliers."""
+    from ..basis.bsplines import eval_bspline_basis, sparse_design
+
+    xs = np.asarray(term.x_data, np.float64)
+    k, m = term.k, term.m
+    lo, hi = float(np.min(term.region)), float(np.max(term.region))
+    kb = k - 2                       # the fit's boundary=True drops two
+    if kb < 4:
+        raise ValueError("an sGP banded driver needs k >= 6 (kb >= 4)")
+    G, n = 3 * m, len(xs)
+    vals4 = np.zeros((n, 4))
+    start_b = np.zeros(n, np.int64)
+    inside = (xs >= lo) & (xs <= hi)
+    if inside.any():
+        S = sparse_design(xs[inside], lo, hi, k, 4, deriv=0).tocsr()
+        # BSpline.design_matrix stores 4 contiguous columns a row
+        data4 = S.data.reshape(-1, 4)
+        cold = S.indices.reshape(-1, 4).astype(np.int64) - 2  # dropped
+        sb = np.clip(cold[:, 0], 0, kb - 4)
+        off = cold - sb[:, None]
+        ok = (cold >= 0) & (off >= 0) & (off <= 3)
+        ridx = np.broadcast_to(np.arange(len(sb))[:, None], off.shape)
+        v_in = np.zeros((len(sb), 4))
+        v_in[ridx[ok], off[ok]] = data4[ok]
+        vals4[inside] = v_in
+        start_b[inside] = sb
+    if (~inside).any():
+        # outside the region: the boundary-dropped basis evaluated
+        # densely at those rows, windowed
+        xo = xs[~inside]
+        Bo = eval_bspline_basis(xo, lo, hi, k, 4, deriv=0, dropind=(1, 2))
+        so = np.where(xo > hi, kb - 4, 0).astype(np.int64)
+        vals4[~inside] = Bo[np.arange(len(xo))[:, None],
+                            so[:, None] + np.arange(4)[None, :]]
+        start_b[~inside] = so
+        outside_mass = np.abs(Bo).sum() - np.abs(vals4[~inside]).sum()
+        assert outside_mass <= 1e-9 * max(np.abs(Bo).sum(), 1.0), \
+            "sGP window extraction missed design mass (outside region)"
+    # group multipliers in group order: per harmonic i, [cos, sin, 1]
+    mults = np.empty((n, G))
+    for i in range(1, m + 1):
+        mults[:, 3 * (i - 1)] = np.cos(term.a * i * xs)
+        mults[:, 3 * (i - 1) + 1] = np.sin(term.a * i * xs)
+        mults[:, 3 * (i - 1) + 2] = 1.0
+    vals = (vals4[:, :, None] * mults[:, None, :]).reshape(n, 4 * G)
+    return vals, (start_b * G).astype(np.int64), kb, G
+
 
 def _merge_iid_into_band(vals_d, start_d, p1, d_drv, P_band_d, Tdiags_d,
                          codes, q):
@@ -365,21 +507,20 @@ def _merge_iid_into_band(vals_d, start_d, p1, d_drv, P_band_d, Tdiags_d,
 
 def build_banded_backend(instances, md, design_mat_fixed, bf_prec, bf_mean,
                          device="cuda", driver_idx=None):
-    """BandedBackend of a multi-term model with an IWP driver on `device`.
+    """BandedBackend of a multi-term model with an IWP or sGP driver on
+    `device`.
 
-    instances: the TermDesigns (IWP, IID, Customized); the driver is the
-    largest IWP term with nonnegative knots (or `driver_idx`). A lazy IID
-    term (no dense design) is merged into the band when its levels
-    cluster in x; otherwise, with at most DENSIFY_MAX levels, it is
-    densified into the tail with a warning, and above that ValueError is
-    raised (the caller may take the scatter_iid engine)."""
+    instances: the TermDesigns (IWP, sGP, IID, Customized); the driver is
+    the largest sGP or IWP term with nonnegative knots (or `driver_idx`).
+    A lazy IID term (no dense design) is merged into an IWP driver's band
+    when its levels cluster in x; otherwise, with at most DENSIFY_MAX
+    levels, it is densified into the tail with a warning, and above that
+    ValueError is raised (the caller may take the scatter_iid engine)."""
     from scipy.linalg import solveh_banded
 
-    if md.family == 0:
-        raise _unported("the Gaussian family's noise hyperparameter")
-    if md.family not in (1, 2):
-        raise ValueError("the banded backend needs the Poisson or "
-                         "Binomial family")
+    if md.family not in (0, 1, 2):
+        raise ValueError("the banded backend needs the Gaussian, Poisson "
+                         "or Binomial family")
     if driver_idx is None:
         eligible = [i for i, t in enumerate(instances)
                     if t.kind in ("IWP", "sGP")
@@ -388,23 +529,31 @@ def build_banded_backend(instances, md, design_mat_fixed, bf_prec, bf_mean,
             raise ValueError("banded backend needs an IWP or sGP term")
         driver_idx = max(eligible, key=lambda i: instances[i].num_basis)
     drv = instances[driver_idx]
-    if drv.kind != "IWP":
-        raise _unported("an sGP driver term")
 
     # ---- driver banded structures ----
-    p = drv.order
-    knots = np.asarray(drv.knots, np.float64)
-    if knots.min() < 0:
-        raise ValueError("banded IWP driver requires nonnegative knots")
-    d = len(knots) - 1
-    G, Wl = 1, p + 1
-    vals, start = reparam.sparse_rows(drv.x_data, knots, p)
-    P_band_d, logdetT, T = reparam.prior_band(knots, p)
-    P_band = np.zeros((Wl, d))
-    P_band[:P_band_d.shape[0]] = P_band_d
-    Tdiags = np.zeros((p + 1, d))
-    for o in range(p + 1):
-        Tdiags[o, o:] = np.diagonal(T, -o)
+    if drv.kind == "IWP":
+        p = drv.order
+        knots = np.asarray(drv.knots, np.float64)
+        if knots.min() < 0:
+            raise ValueError("banded IWP driver requires nonnegative knots")
+        d = len(knots) - 1
+        G, Wl = 1, p + 1
+        vals, start = reparam.sparse_rows(drv.x_data, knots, p)
+        P_band_d, logdetT, T = reparam.prior_band(knots, p)
+        P_band = np.zeros((Wl, d))
+        P_band[:P_band_d.shape[0]] = P_band_d
+        Tdiags = np.zeros((p + 1, d))
+        for o in range(p + 1):
+            Tdiags[o, o:] = np.diagonal(T, -o)
+        drv_ref = np.arange(d)       # reference column of driver column j
+    else:                            # sGP: interleaved, no coordinate change
+        vals, start, kb, G = _sgp_sparse_rows(drv)
+        Wl, d = 4 * G, kb * G
+        drv_ref = _sgp_interleave_perm(kb, G)
+        Qi = np.asarray(drv.P, np.float64)[np.ix_(drv_ref, drv_ref)]
+        P_band = _band_from_dense(Qi, Wl - 1)
+        Tdiags = _band_root(P_band)
+        logdetT = 0.0
     logPdet_drv = float(np.asarray(md.logPdet)[driver_idx])
     d_drv = d
 
@@ -428,6 +577,9 @@ def build_banded_backend(instances, md, design_mat_fixed, bf_prec, bf_mean,
     if len(lazy_iid) > 1:
         _densify_or_raise("merged-IID supports one large IID term")
         lazy_iid = []
+    elif lazy_iid and drv.kind != "IWP":
+        _densify_or_raise("merged-IID needs an IWP driver term")
+        lazy_iid = []
     if lazy_iid:
         i_iid = lazy_iid[0]
         t_iid = instances[i_iid]
@@ -441,9 +593,13 @@ def build_banded_backend(instances, md, design_mat_fixed, bf_prec, bf_mean,
             _densify_or_raise(str(e))
 
     # w of the driver prior P = T^T diag(w) T: diff(knots), at stride G in
-    # a merged band (0 on the level and padded columns)
-    prior_w = np.zeros(d)
-    prior_w[np.arange(d_drv) * G] = np.diff(knots)
+    # a merged band (0 on the level and padded columns); 1 for an sGP
+    # driver's root
+    if drv.kind == "IWP":
+        prior_w = np.zeros(d)
+        prior_w[np.arange(d_drv) * G] = np.diff(knots)
+    else:
+        prior_w = np.ones(d)
 
     bw = Wl - 1
     s = _choose_block(d, bw)
@@ -544,7 +700,7 @@ def build_banded_backend(instances, md, design_mat_fixed, bf_prec, bf_mean,
         ref_of_backend[iid_cols] = iid_off + np.arange(len(iid_cols))
         ref_of_backend[pad_cols] = w_ref + np.arange(len(pad_cols))
     else:
-        ref_of_backend[:d] = drv_off + np.arange(d)
+        ref_of_backend[:d] = drv_off + drv_ref
     pos = d
     for i, t in enumerate(instances):
         if i in (driver_idx, merged_iid_idx):
@@ -589,7 +745,8 @@ def build_banded_backend(instances, md, design_mat_fixed, bf_prec, bf_mean,
         w_real = w_ref
     scalars = dict(drv_theta=driver_idx, Wl=Wl, G=G, d=d, dpad=dpad,
                    d_drv=d_drv, logPdet_drv=logPdet_drv,
-                   logdetT=float(logdetT), w_real=w_real)
+                   logdetT=float(logdetT), w_real=w_real,
+                   T_is_root=drv.kind != "IWP")
     tails = [dataclasses.asdict(tb) for tb in tail_terms]
     return from_arrays(drv, md_perm, arrays, scalars, tails, band_terms,
                        row_order=order, device=device)
@@ -602,9 +759,10 @@ def from_arrays(term, md, arrays, scalars, tail_terms, band_terms,
     XFpT, Z0, PZ0, Z0PZ0, P_band, Tdiags, prior_w, prior_diag_tail,
     prior_mean_tail, ref_perm and, with padded merged slots,
     prior_diag_band and Z0PZ0_pad; scalars: drv_theta, Wl, G, d, dpad,
-    d_drv, logPdet_drv, logdetT, w_real; tail_terms / band_terms: dicts
-    of the TailTermBlock / BandDiagTerm fields. row_order: the build's
-    row sort (raw -> internal), identity when None."""
+    d_drv, logPdet_drv, logdetT, w_real and T_is_root; tail_terms /
+    band_terms: dicts of the TailTermBlock / BandDiagTerm fields.
+    row_order: the build's row sort (raw -> internal), identity when
+    None."""
     dev = torch.device(device)
 
     def f64(a):
@@ -649,4 +807,5 @@ def from_arrays(term, md, arrays, scalars, tail_terms, band_terms,
         Z0PZ0_pad=(f64(arrays["Z0PZ0_pad"])
                    if arrays.get("Z0PZ0_pad") is not None else None),
         w_real=None if w_real is None else int(w_real),
-        ref_perm=i64(arrays["ref_perm"]))
+        ref_perm=i64(arrays["ref_perm"]),
+        T_is_root=bool(scalars.get("T_is_root", False)))

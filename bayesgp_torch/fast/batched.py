@@ -36,7 +36,7 @@ from ..device import DTYPE
 from ..linalg import band_batched as bb
 from ..linalg.band_arrow_batched import BandArrowBatchedEngine
 from .iwp import (LOG2PI, LS_NOISE, MAX_NEWTON, STALL_ITERS, STEPTOL,
-                  _finite)
+                  _finite, design_gram, schur_gram)
 
 # a replicate whose step has not fallen below this share of its best for
 # STALL_ITERS iterations leaves the convergence condition
@@ -200,7 +200,7 @@ class BatchedFastIWP:
         band = self.band_H(wts, theta)
         C = self.C_block(wts, theta)
         if self.q:
-            Hd = ((base.XFpT * wts[:, None, :]) @ base.XFpT.T
+            Hd = (design_gram(base.XFpT, wts)
                   + torch.exp(theta)[:, None, None] * base.Z0PZ0
                   + torch.diag(base.prior_diag_tail))
             sd = torch.rsqrt(torch.diagonal(Hd, dim1=1, dim2=2))
@@ -218,21 +218,15 @@ class BatchedFastIWP:
 
     def _tail_schur(self, L, rinv, Y, sc, sd, wts, theta):
         """(R, q, q) Schur tails of the equilibrated arrowheads, sd_r S_r
-        sd_r, each the Gram of least-squares residuals of
-        FastIWPBackend._tail_schur (never Hd - Y^T Y, which cancels where
-        the prior pins the driver); differentiable in wts and theta."""
+        sd_r: fast/iwp.schur_gram, the one-response engine's function, on
+        all R systems (never Hd - Y^T Y, which cancels where the prior
+        pins the driver); differentiable in wts and theta."""
         base = self.base
         with torch.no_grad():
             Wt = (self.engine.ops.bwd_solve(L, rinv, Y.contiguous())
                   * sc[:, :, None] / sd[:, None, :]).mT    # (R, q, dpad)
-        BW = sum(base.valsT[a] * Wt[:, :, base._cols[a]]
-                 for a in range(self.p + 1))               # (R, q, n)
-        E1 = torch.sqrt(wts)[:, None, :] * (base.XFpT - BW)
-        Wc = base.Z0.T + Wt[:, :, :self.d]                 # (R, q, d)
-        E2 = (base.apply_T(Wc) * base._sqrt_w
-              * torch.exp(0.5 * theta)[:, None, None])
-        S = (E1 @ E1.mT + E2 @ E2.mT
-             + torch.diag(base.prior_diag_tail))
+        S = schur_gram(base, Wt, wts, theta,
+                       torch.diag(base.prior_diag_tail))
         return S * sd[:, :, None] * sd[:, None, :]
 
     def _factor_scaled(self, band_s, C_s, sc, sd, wts, theta):

@@ -240,7 +240,7 @@ class FastIWPBackend(HostNodes):
     def tail_gram(self, wts, theta):
         """Tail block XFp^T diag(wts) XFp + e^theta Z0' P_V Z0 + diag(prior)
         of the Hessian -> (q, q)."""
-        return ((self.XFpT * wts) @ self.XFpT.T
+        return (design_gram(self.XFpT, wts[None])[0]
                 + torch.exp(theta[0]) * self.Z0PZ0
                 + self._tail_prior_mat(theta))
 
@@ -256,31 +256,20 @@ class FastIWPBackend(HostNodes):
     # -- the Schur tail as a Gram ------------------------------------------
     # The tail's Schur complement S = Hd - C^T Hb^{-1} C is, column by
     # column, the least-squares residual of the tail's design against the
-    # band's: with R = sqrt(wts) B, F the prior's factor (F^T F = e^theta
-    # P_V + the diagonal terms) and W' = Hb^{-1} C,
-    #     S = E1^T E1 + E2^T E2 + P_t,
-    #     E1 = sqrt(wts) (XFp - B W'),   E2 = F (Z0 + W').
-    # Taken as the difference Hd - Y^T Y it cancels where the prior pins
-    # the driver (e^theta Z0' P Z0 in Hd against the same in Y^T Y): at
-    # the merged-IID headline's mode that left S noise. The Gram is a sum
-    # of squares, and an error in W' moves it only to second order (S is
-    # the minimum over W'), so its derivative is taken with W' fixed.
+    # band's (schur_gram below); taken as the difference Hd - Y^T Y it
+    # cancels where the prior pins the driver.
     def _tail_schur(self, L, rinv, Y, sc, sd, wts, theta):
         """(q, q) Schur tail of the equilibrated arrowhead, sd S sd, as
-        the Gram above; L, rinv, Y: the band factor of the equilibrated
-        band and Y = L^{-1} C_s. Differentiable in wts and theta."""
+        schur_gram's R = 1 case; L, rinv, Y: the band factor of the
+        equilibrated band and Y = L^{-1} C_s. Differentiable in wts and
+        theta."""
         with torch.no_grad():
             Wt = (self.engine.ops.bwd_solve(L, rinv, Y.contiguous())
                   * sc[:, None] / sd[None, :]).T          # (q, dpad): W'^T
-        BW = (self.valsT * Wt[:, self._cols]).sum(1)    # (q, n): (B W')^T
-        E1 = torch.sqrt(wts) * (self.XFpT - BW)
-        Wc = self.Z0.T + Wt[:, :self.d]                 # (q, d): Z0 + W'
-        E2 = (self.apply_T(Wc) * self._sqrt_w
-              * torch.exp(0.5 * theta[self.drv_theta]))
-        S = E1 @ E1.T + E2 @ E2.T + self._tail_prior_mat(theta)
-        extra = self._band_extra_diag(theta)
-        if extra is not None:
-            S = S + (Wc * extra) @ Wc.T
+        S = schur_gram(self, Wt[None], wts[None],
+                       theta[self.drv_theta][None],
+                       self._tail_prior_mat(theta),
+                       self._band_extra_diag(theta))[0]
         return S * sd[:, None] * sd[None, :]
 
     # -- prior ------------------------------------------------------------
@@ -304,6 +293,10 @@ class FastIWPBackend(HostNodes):
         for o in self._t_offsets:
             V = V + F.pad(self.Tdiags[o, o:] * U[..., o:], (0, o))
         return V
+
+    def to_U(self, V):
+        """Reference coefficients U = T V of the spline. V: (..., d)."""
+        return self.apply_T(V)
 
     def to_V(self, Vp, tail):
         """Spline coefficients V = V' - Z0 t, (..., d) (rows of Vp/tail for
@@ -381,18 +374,18 @@ class FastIWPBackend(HostNodes):
         C_s = C * sc[:, None] * sd[None, :] if self.q else C
         return band_s, C_s, Hd, sc, sd, wts
 
-    def _factor_scaled(self, band_s, C_s, Hd, sc, sd, wts, theta):
+    def _factor_scaled(self, band_s, C_s, sc, sd, wts, theta):
         """Engine factor of the equilibrated Hessian, its Schur tail
         formed by _tail_schur."""
         def schur(L, rinv, Y):
             return self._tail_schur(L, rinv, Y, sc, sd, wts, theta)
-        return self.engine.factor(band_s, C_s, Hd, schur=schur)
+        return self.engine.factor(band_s, C_s, schur)
 
     def hessian_factor(self, V, tail, theta, eta=None):
         """(engine factor, sc, sd) of the equilibrated Hessian."""
         band_s, C_s, Hd, sc, sd, wts = self._assemble_scaled(V, tail, theta,
                                                              eta=eta)
-        return (self._factor_scaled(band_s, C_s, Hd, sc, sd, wts, theta),
+        return (self._factor_scaled(band_s, C_s, sc, sd, wts, theta),
                 sc, sd)
 
     def solve_H(self, factor, gV, gt):
@@ -520,7 +513,7 @@ class FastIWPBackend(HostNodes):
         # the tail's scale cancels from 0.5 log|sd S sd| - sum log sd
         sd = sd.detach()
         if factor is None:
-            af = self._factor_scaled(band_s, C_s, Hd, sc.detach(), sd,
+            af = self._factor_scaled(band_s, C_s, sc.detach(), sd,
                                      wts.detach(), theta.detach())
         else:
             af = factor[0]
@@ -591,8 +584,44 @@ class FastIWPBackend(HostNodes):
         tn = torch.stack([s[1] for s in states])
         Vs = Vn[idx] + xbs[idx, :, m_ar]               # (M, dpad)
         ts = tn[idx] + xds[idx, :, m_ar]               # (M, q)
-        U = self.apply_T(self.to_V(Vs, ts)[:, :self.d])
+        U = self.to_U(self.to_V(Vs, ts)[:, :self.d])
         return torch.cat([U, ts], dim=1).T             # (w_ref, M)
+
+
+def design_gram(XT, wts):
+    """(R, q, q) X^T diag(wts_r) X for XT (q, n) and weights (R, n): one
+    2-D product a system, so a system's Gram rounds alike whatever R (a
+    batched product may run another cuBLAS kernel than a single one)."""
+    return torch.stack([(XT * w) @ XT.T for w in wts])
+
+
+# The Schur tail as a Gram. With F the prior's factor (F^T F = e^theta
+# P_V) and W' = Hb^{-1} C,
+#     S = E1^T E1 + E2^T E2 + P_t (+ Wc^T D Wc),
+#     E1 = sqrt(wts) (XFp - B W'),   E2 = F Wc,   Wc = Z0 + W',
+# D the band's other diagonal prior terms: a sum of squares, and an
+# error in W' moves it only to second order (S is the minimum over W'),
+# so its derivative is taken with W' fixed. One function forms it for
+# the one-response engine (R = 1) and the replicate engine
+# (fast/batched.py): every reduction runs over one system's own entries
+# (the design sum over a within each system, one 2-D product a system for
+# each Gram), so on the same inputs a system's S is the same bits
+# whatever R.
+def schur_gram(be, Wt, wts, th_drv, prior, extra=None):
+    """(R, q, q) unscaled Schur tails of R systems on be's design: Wt (R,
+    q, dpad) = (Hb_r^{-1} C_r)^T, wts (R, n) the likelihood weights,
+    th_drv (R,) the driver's theta, prior (q, q) or (R, q, q) the tail's
+    own prior precision, extra (d,) the band's other diagonal prior terms
+    or None. Differentiable in wts, th_drv, prior and extra."""
+    BW = (be.valsT * Wt[:, :, be._cols]).sum(2)             # (R, q, n)
+    E1 = torch.sqrt(wts)[:, None, :] * (be.XFpT - BW)
+    Wc = be.Z0.T + Wt[:, :, :be.d]                          # (R, q, d)
+    E2 = (be.apply_T(Wc) * be._sqrt_w
+          * torch.exp(0.5 * th_drv)[:, None, None])
+    S = torch.stack([a @ a.T + b @ b.T for a, b in zip(E1, E2)]) + prior
+    if extra is not None:
+        S = S + torch.stack([(w * extra) @ w.T for w in Wc])
+    return S
 
 
 class _SegSum(torch.autograd.Function):

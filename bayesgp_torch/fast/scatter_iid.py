@@ -34,7 +34,8 @@ level) cell, and each cell's run is summed by a difference of an f64
 prefix sum. No atomics and no look-back scan, so every run sums in the
 same order; the backward of each is a gather.
 
-theta layout: [theta_IWP, theta_IID]; the core sees [theta_IWP]. The
+theta layout: [theta_IWP, theta_IID] and, for a Gaussian, the noise's
+theta last; the core sees the smooth's and the noise's. The
 JAX package's one-hot chunk scan, its split-f32 Schur product and its
 fused s>1 programs are TPU devices and are not ported.
 """
@@ -176,8 +177,18 @@ class ScatterIIDBackend(iwp.HostNodes):
         V, t = self.core.init_state()
         return V, torch.zeros(self.q_iid, dtype=DTYPE, device=self.device), t
 
+    @property
+    def em_dims(self):
+        """Penalized dimension per theta: the smooth's d, the IID term's
+        q and, for a Gaussian, n (see FastIWPBackend.em_dims)."""
+        dims = [float(self.core.d), float(self.q_iid)]
+        if self.md.family == 0:
+            dims.append(float(self.md.n))
+        return np.asarray(dims)
+
     def _theta_core(self, theta):
-        return theta[:1]
+        """The core's thetas: the smooth's, and the Gaussian noise's."""
+        return theta[0::2]
 
     # -- linear predictor and level products ---------------------------
     def eta(self, Vp, u, tail):
@@ -486,13 +497,9 @@ def build_scatter_iid(instances, md, design_mat_fixed, bf_prec, bf_mean,
     if kinds != ["IWP", "IID"]:
         raise ValueError("the scatter_iid engine needs one IWP smooth "
                          "followed by one IID term")
-    if md.family == 0:
-        raise NotImplementedError(
-            "the Gaussian family on the scatter_iid engine (a third "
-            "hyperparameter) is not ported yet (ROADMAP Queue 1 item 7)")
-    if md.family not in (1, 2):
-        raise ValueError("the scatter_iid engine needs the Poisson or "
-                         "Binomial family")
+    if md.family not in (0, 1, 2):
+        raise ValueError("the scatter_iid engine needs the Gaussian, "
+                         "Poisson or Binomial family")
     drv, t_iid = instances
     if t_iid.extra is None or "codes" not in t_iid.extra:
         raise ValueError("the IID term carries no level codes")
@@ -500,10 +507,12 @@ def build_scatter_iid(instances, md, design_mat_fixed, bf_prec, bf_mean,
         raise ValueError("the scatter_iid engine needs nonnegative knots")
     q_iid = len(t_iid.levels)
 
-    # core model: the smooth and the fixed columns, same data
+    # core model: the smooth and the fixed columns, same data; its thetas
+    # are the smooth's and, for a Gaussian, the noise's (_theta_core)
+    keep = [i for i in range(md.n_theta) if i != 1]
     core_md = dataclasses.replace(
-        md, logPdet=np.asarray(md.logPdet)[:1], u=np.asarray(md.u)[:1],
-        alpha=np.asarray(md.alpha)[:1],
+        md, logPdet=np.asarray(md.logPdet)[:1], u=np.asarray(md.u)[keep],
+        alpha=np.asarray(md.alpha)[keep],
         P_blocks=(), d_sizes=(drv.num_basis,), x_sizes=(drv.X.shape[1],))
     nb_cols = drv.X.shape[1]
     bp = np.asarray(md.betaprec).reshape(-1)

@@ -6,23 +6,20 @@ The conditional Hessian of a single-IWP model has the form
 
 BandArrowEngine factors it with the band kernels of band_kernels.py
 (K1 factor with the fused Y = L^{-1} C, K2/K3 solves, K5 draws, K4
-selected inverse) and the dense Schur tail S = Hd - Y^T Y: with
-torch.linalg below DENSE_TAIL_MIN columns, and from there on the blocked
-dense Cholesky of chol_dense.py (K6/K7), as the JAX package's
+selected inverse) and the dense Schur tail S = Hd - C^T Hb^{-1} C, which
+the caller forms and passes to `factor` as `schur` (fast/iwp.py forms it
+as a Gram of least-squares residuals, which no cancellation enters; Hd -
+Y^T Y cancels where the prior pins the driver). S factors with
+torch.linalg below DENSE_TAIL_MIN columns, and from there on with the
+blocked dense Cholesky of chol_dense.py (K6/K7), as the JAX package's
 small_chol routes tails of 256 columns and more. Bands are (d, bw+1)
 with row j, column o holding Hb[j+o, j].
 
-`arrow_half_logdet` is the differentiable half log-det: a
-torch.autograd.Function whose backward is the Takahashi selected inverse
-plus the Schur-tail corrections, d(0.5 log|H|)/dH = 0.5 H^{-1} on the
-entries that parameterize H -- the backward never differentiates
-through the factorization recurrence.
-
-A backend that can form the Schur tail S without the difference Hd -
-Y^T Y (fast/iwp.py forms it as a Gram of least-squares residuals, which
-no cancellation enters) passes it to `factor` as `schur` and takes the
-half log-det from `schur_half_logdet`: 0.5 log|H| = 0.5 log|Hb| + 0.5
-log|S|, with the band's cotangent 0.5 Takahashi(Hb) and S's 0.5 S^{-1}.
+`schur_half_logdet` is the differentiable half log-det 0.5 log|H| = 0.5
+log|Hb| + 0.5 log|S|: a torch.autograd.Function whose backward gives the
+band the cotangent 0.5 Takahashi(Hb) (the selected inverse) and S 0.5
+S^{-1}; the tail's derivative is taken through the caller's S, and the
+backward never differentiates through the factorization recurrence.
 
 The backward's sick-factor gate drops those cotangents only where the
 factor is sick: K1 clamped a band pivot, the tail factor left its plain
@@ -126,20 +123,27 @@ class BandArrowEngine:
             return chol_dense.solve_lower_t_blocked(Ls, b)
         return _solve_Lt(Ls, b)
 
-    def factor(self, band, C, Hd, schur=None):
-        """BandFactor of the arrowhead (band, C, Hd). The Schur tail is Hd
-        - Y^T Y, or schur(L, rinv, Y) where the caller forms it itself
-        (Hd is then not read)."""
+    def factor(self, band, C, schur):
+        """BandFactor of the arrowhead whose band is `band`, whose cross
+        block is C and whose Schur tail is schur(L, rinv, Y) (q, q), with
+        Y = L^{-1} C (not called where q = 0). Where K1 clamped a pivot, Y
+        is K2's solve, without K1's cap on |Y|: the replicate engine's Y
+        (K9) has no cap, and a capped Y gives the tail of another matrix,
+        so both engines' tails stay one function of (L, C). On a healthy
+        equilibrated factor |Y| <= 1, the cap never binds and the two
+        solves are the same bits. On a card K2 reads K1's flag on the
+        device (a host read would stall the launch queue) and returns at
+        once where it is clear."""
         with torch.no_grad():
             band = band.detach().contiguous()
             C = C.detach().contiguous()
             L, rinv, Y, hld_b, clamped = self.ops.factor(band, C)
             if self.q:
-                S = (Hd.detach() - Y.T @ Y if schur is None
-                     else schur(L, rinv, Y).detach())
-                Ls, left = self._tail_chol(S)
+                Y = self.ops.fwd_solve_gated(clamped, L, rinv, C, Y)
+                Ls, left = self._tail_chol(schur(L, rinv, Y).detach())
             else:
-                Ls, left = Hd.detach(), torch.zeros_like(clamped)
+                Ls = C.new_zeros((0, 0))
+                left = torch.zeros_like(clamped)
         return BandFactor(L, rinv, Y, Ls, hld_b, clamped, left)
 
     def half_logdet(self, f: BandFactor):
@@ -176,24 +180,6 @@ class BandArrowEngine:
             rhs = zb
         xb = self.ops.bwd_multi(f.L, f.rinv, rhs.contiguous())
         return xb, xd
-
-    def _hinv_parts(self, f: BandFactor):
-        """The entries of H^{-1} the half-log-det backward reads:
-        Hinv_bb|band = Takahashi(Hb) + band(W S^{-1} W^T), A = W S^{-1}
-        (Hinv_bd = -A) and Hinv_dd = S^{-1}, with W = Hb^{-1} C (A and
-        S^{-1} None when q = 0)."""
-        d, bw, q = self.d, self.bw, self.q
-        dt, dev = f.L.dtype, f.L.device
-        hinv_band = self.ops.takahashi(f.L, f.rinv)          # (d, bw+1)
-        if not q:
-            return hinv_band, None, None
-        Wm = self.solve_Lt(f, f.Y)                             # (d, q)
-        Sinv = self._tail_inverse(f)
-        A = Wm @ Sinv                                          # (d, q)
-        corr = torch.zeros((d, bw + 1), dtype=dt, device=dev)
-        for o in range(bw + 1):
-            corr[:d - o, o] = (A[o:] * Wm[:d - o]).sum(1)
-        return hinv_band + corr, A, Sinv
 
     def _tail_inverse(self, f: BandFactor):
         """S^{-1} from the tail factor; None when q = 0."""
@@ -249,27 +235,6 @@ class BandArrowEngine:
         rather than through the blocks C and Hd."""
         return _SchurHalfLogdet.apply(band, S, self, f)
 
-    def hld_backward(self, f: BandFactor, ct):
-        """Cotangents of the half log-det for (band, C, Hd): ct times
-        0.5 H^{-1} on the band's diagonal, H^{-1} off it, -A for C and
-        0.5 S^{-1} for Hd (_hinv_parts), _gated."""
-        hinv_band, A, Sinv = self._hinv_parts(f)
-        if not self.q:
-            z = hinv_band.new_zeros
-            return (self._gated(f, ct, hinv_band, ())[0], z((self.d, 0)),
-                    z((0, 0)))
-        return self._gated(f, ct, hinv_band, ((-ct) * A, (0.5 * ct) * Sinv))
-
-    def arrow_half_logdet(self, band, C, Hd):
-        """Differentiable half log-det of the arrowhead."""
-        return _HalfLogdet.apply(band, C, Hd, self, None)
-
-    def arrow_half_logdet_given(self, band, C, Hd, f: BandFactor):
-        """arrow_half_logdet with a precomputed factor of the same system:
-        the primal skips the factorization, the backward gives the same
-        cotangents from `f`."""
-        return _HalfLogdet.apply(band, C, Hd, self, f)
-
 
 def _finite(*parts):
     """0-d bool: every entry of the given tensors (None skipped) is
@@ -291,17 +256,3 @@ class _SchurHalfLogdet(torch.autograd.Function):
     def backward(ctx, ct):
         g_band, g_S = ctx.engine.schur_backward(ctx.f, ct)
         return g_band, g_S, None, None
-
-
-class _HalfLogdet(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, band, C, Hd, engine, f):
-        if f is None:
-            f = engine.factor(band, C, Hd)
-        ctx.engine, ctx.f = engine, f
-        return engine.half_logdet(f)
-
-    @staticmethod
-    def backward(ctx, ct):
-        g_band, g_C, g_Hd = ctx.engine.hld_backward(ctx.f, ct)
-        return g_band, g_C, g_Hd, None, None

@@ -5,7 +5,8 @@ tail. These five functions carry its factorization and every solve of
 the banded Laplace fit:
 
   band_factor     (K1)  L L^T = band, Y = L^{-1} C, half log-det
-  band_fwd_solve  (K2)  L X = B
+  band_fwd_solve  (K2)  L X = B (band_fwd_solve_gated: where a device
+                        flag is set, in place)
   band_bwd_solve  (K3)  L^T X = B
   band_bwd_multi  (K5)  L^T X = Z for the posterior draws
   band_takahashi  (K4)  band of H^{-1} from L (selected inverse)
@@ -144,6 +145,7 @@ def _library():
         lib.bgt_band_factor_bulk.argtypes = [P, P, P, P, P, P, P, P, I, I, I,
                                              I, P]
         lib.bgt_band_tail_solve.argtypes = [P, P, P, P, I, I, I, P]
+        lib.bgt_band_fwd_solve_gated.argtypes = [P, P, P, P, P, I, I, I, P]
         for name in ("bgt_band_fwd_solve", "bgt_band_bwd_solve",
                      "bgt_band_bwd_multi"):
             getattr(lib, name).argtypes = [P, P, P, P, I, I, I, P]
@@ -158,7 +160,8 @@ def _library():
         lib.bgt_band_takahashi_batched.argtypes = [P, P, P, I, I, I, P]
         for name in ("bgt_band_factor", "bgt_band_factor_tile",
                      "bgt_band_factor_bulk", "bgt_band_tail_solve",
-                     "bgt_band_fwd_solve", "bgt_band_bwd_solve",
+                     "bgt_band_fwd_solve", "bgt_band_fwd_solve_gated",
+                     "bgt_band_bwd_solve",
                      "bgt_band_bwd_multi",
                      "bgt_band_bwd_multi_warps",
                      "bgt_band_takahashi", "bgt_band_factor_batched",
@@ -413,6 +416,36 @@ def band_fwd_solve(L, rinv, B):
     return X
 
 
+def band_fwd_solve_gated_plain(gate, L, rinv, B, X):
+    """Plain version of band_fwd_solve_gated (reads the gate on the
+    host)."""
+    if bool(gate):
+        X.copy_(band_fwd_solve_plain(L, rinv, B))
+    return X
+
+
+def band_fwd_solve_gated(gate, L, rinv, B, X):
+    """X, overwritten in place with L^{-1} B where the 0-d bool tensor
+    `gate` is set and kept where it is clear: K1's re-solve of Y where it
+    clamped a pivot (band_arrow.BandArrowEngine.factor). On a card K2's
+    kernel reads the gate on the device, so no host read waits on the
+    factor, and on a clear gate every block returns at once."""
+    _check_factor(L, rinv)
+    _check_rhs(L, B)
+    _check(X, "X", 2)
+    if X.shape != B.shape:
+        raise ValueError("X must have the shape of B")
+    if gate.dtype != torch.bool or gate.dim() != 0:
+        raise TypeError("gate must be a 0-d bool tensor")
+    if not _on_cuda(L, rinv, B, X, gate):
+        return band_fwd_solve_gated_plain(gate, L, rinv, B, X)
+    with _device(L):
+        _launch("band_fwd_solve", _library().bgt_band_fwd_solve_gated,
+                _ptr(L), _ptr(rinv), _ptr(B), _ptr(X), _ptr(gate),
+                L.shape[0], L.shape[1] - 1, B.shape[1], _stream(L))
+    return X
+
+
 # -- K3 / K5: backward solves -------------------------------------------------
 
 def band_bwd_solve_plain(L, rinv, B):
@@ -534,19 +567,22 @@ def band_takahashi(L, rinv):
 
 
 class BandOps:
-    """The five band operations an engine runs, as one table: KERNELS
+    """The band operations an engine runs, as one table: KERNELS
     dispatches on the device (the kernels on a card), PLAIN always runs
     the plain versions (the comparison engine)."""
 
-    def __init__(self, factor, fwd_solve, bwd_solve, bwd_multi, takahashi):
+    def __init__(self, factor, fwd_solve, fwd_solve_gated, bwd_solve,
+                 bwd_multi, takahashi):
         self.factor = factor
         self.fwd_solve = fwd_solve
+        self.fwd_solve_gated = fwd_solve_gated
         self.bwd_solve = bwd_solve
         self.bwd_multi = bwd_multi
         self.takahashi = takahashi
 
 
-KERNELS = BandOps(band_factor, band_fwd_solve, band_bwd_solve,
-                  band_bwd_multi, band_takahashi)
-PLAIN = BandOps(band_factor_plain, band_fwd_solve_plain, band_bwd_solve_plain,
+KERNELS = BandOps(band_factor, band_fwd_solve, band_fwd_solve_gated,
+                  band_bwd_solve, band_bwd_multi, band_takahashi)
+PLAIN = BandOps(band_factor_plain, band_fwd_solve_plain,
+                band_fwd_solve_gated_plain, band_bwd_solve_plain,
                 band_bwd_solve_plain, band_takahashi_plain)

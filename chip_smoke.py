@@ -28,6 +28,11 @@ Phases (any failure raises and the script exits non-zero):
   6. replicate fits on the headline design: replicate_fits_packed at
      R = 16 (twice) and R = 64, a profiled Laplace evaluation at
      R = 64, replicate_fits at R = 4, counting the launches of K8-K11;
+     then, after phase 7, the one Schur tail of both band engines: at
+     theta_IWP = 20, 25, 30, 35 and 40, each of two responses at its
+     one-response mode, the replicate engine's tail on the one-response
+     engine's factor the same bits, both tails on the same route, and
+     the two half log-dets equal (SCHUR_RTOL);
   7. the batched kernel engine against the batched plain engine at a
      fixed point of the R = 16 run;
   8. a small scattered-IID fit (engine='scatter_iid', IWP order 2, k = 150,
@@ -78,13 +83,27 @@ Phases (any failure raises and the script exits non-zero):
      Newton steps, host syncs and peak device memory;
  19. the sGP lynx vignette fit (sGP k = 20 + IID, Poisson, two
      hyperparameters, w = 171) against the port's CPU-f64 values, and
-     its predict spread;
+     its predict spread; then the same fit with engine='banded' (the sGP
+     term drives a band of width 12, K1-K5 launched) against it;
  20. the dense route at its largest size: the bench.py generator at
      n = 6,000, IWP3 k = 300, Poisson (n * basis ~ 1.8e6, just under the
      2e6 at which engine='auto' leaves the dense route) fitted twice, a
      Gaussian s = 2 variant and an nlminb fit of its fixed effects, each
      held to the port's CPU-f64 fit of it (DENSE_CPU), and a profiled
-     cold Laplace evaluation.
+     cold Laplace evaluation;
+ 21. gauss2 (bench_extra.py:35-100, uncut): the headline design with a
+     Gaussian response, s = 2, AGHQ k = 4 and M = 3000 draws, twice, the
+     fits equal bit for bit; the kernel engine against the plain engine
+     at the mode; the Laplace value at the mode from a cold state and
+     from the states of theta +- 0.5, +- 1, one coordinate at a time
+     (its spread in nats); fit wall, Laplace evaluations, Newton steps,
+     K1-K5 launches and peak memory;
+ 22. two_smooths (bench_extra.py:279-308, BASELINE config 4, uncut: IWP2
+     k = 100 + sGP period 10 k = 100, Gaussian, s = 3, AGHQ k = 3): the
+     mode, the nll at it and its gradient held to
+     tests/test_two_smooth_golden.py; the backend and its (d, bw, q);
+     K1-K5 at the sGP driver's (dpad, bw, q) against their plain versions,
+     with bound and library times.
 No kernel of K1-K11 is on the dense route (torch.linalg carries it, as
 XLA's Cholesky carries the JAX package's): phases 18-20 log the kernel
 launch counts, set to 0 before each and read after it.
@@ -250,6 +269,26 @@ DENSE_CPU = {
                  "lognormconst": -2855.332805204258},
     "nlminb": {"mean": [2.035771543892731, -0.003377647653748773]}}
 DENSE_MODE_TOL, DENSE_LNC_TOL, DENSE_MEAN_TOL = 1e-4, 1e-5, 1e-8
+# phase 19's lynx fit on the banded route against its dense fit
+# (tests/test_banded_generic.py:134-143): lognormconst, theta means
+LYNX_BANDED_LNC_TOL, LYNX_BANDED_THETA_TOL = 1e-4, 1e-3
+# the one Schur tail of both band engines (ROADMAP Queue 3 #6): thetas of
+# the headline design at which their half log-dets are held equal, to this
+# relative gap (the engines' linear predictors may round apart)
+SCHUR_THETAS = (20.0, 25.0, 30.0, 35.0, 40.0)
+SCHUR_RTOL = 1e-12
+# gauss2 (bench_extra.py:35-100): the headline design with a Gaussian
+# response, AGHQ k = 4; the Laplace value's noise at the mode from warm
+# states at these steps of one coordinate at a time
+GAUSS2_STEPS = (0.5, -0.5, 1.0, -1.0)
+# two_smooths (bench_extra.py:279-308, BASELINE config 4) and its golden
+# mode (tests/test_two_smooth_golden.py:19-55)
+TWO_SMOOTHS_N, TWO_SMOOTHS_K = 20_000, 100
+TWO_SMOOTHS_FORMULA = ("y ~ f(x=x, model='IWP', order=2, k=k_iwp) "
+                       "+ f(x=xs, model='sGP', period=10, k=k_sgp)")
+TWO_SMOOTHS_MODE = (11.07, 14.09, 2.42)
+TWO_SMOOTHS_MODE_TOL = 0.15
+TWO_SMOOTHS_NLL, TWO_SMOOTHS_NLL_TOL, TWO_SMOOTHS_GRAD_MAX = 3883.0, 5.0, 5.0
 
 
 T_START = time.perf_counter()
@@ -397,7 +436,7 @@ def phase_kernels(bk, dev):
     bad = band.clone()
     bad[10, 0] = -0.8
     bad[40, 0] = 1e-14
-    Lb, _, Yb, hb, cb = bk.band_factor(bad, C)
+    Lb, rinvb, Yb, hb, cb = bk.band_factor(bad, C)
     Lbp, _, Ybp, hbp, cbp = bk.band_factor_plain(bad, C)
     log(f"  K1 indefinite band: clamped pivot reported by the kernel "
         f"{bool(cb)}, by the plain version {bool(cbp)}")
@@ -405,6 +444,8 @@ def phase_kernels(bk, dev):
     check_close("K1 indefinite L", Lb, Lbp)
     check_close("K1 indefinite Y", Yb, Ybp)
     check_close("K1 indefinite hld", hb, hbp)
+    check_gated(bk, Lb, rinvb, C, Yb, cb, f"bw={BW} q={Q} clamped")
+    check_gated(bk, L, rinv, C, Y, clamped, f"bw={BW} q={Q} healthy")
     check_factor_orders(bk, dev)
 
     Ld = torch.zeros((D, D), dtype=torch.float64, device=dev)
@@ -524,6 +565,27 @@ def check_factor_orders(bk, dev):
         f"kernels with the cap, and the wide kernel at 1-6 bulk warps: ok")
 
 
+def check_gated(bk, L, rinv, B, X0, gate, tag):
+    """K2 on a device gate (K1's re-solve of Y) against its plain version,
+    bit for bit: X0 kept on a clear gate, L^{-1} B on a set one (on a
+    clamped factor the uncapped solve may overflow: NaNs must sit where
+    the plain version has them)."""
+    def nan0(x):
+        return torch.where(torch.isnan(x), torch.zeros_like(x), x)
+
+    def same(name, a, b):
+        require(torch.equal(torch.isnan(a), torch.isnan(b)),
+                f"{name}: NaNs in the same places")
+        check_equal(name, nan0(a), nan0(b))
+
+    got = bk.band_fwd_solve_gated(gate, L, rinv, B, X0.clone())
+    want = bk.band_fwd_solve_gated_plain(gate, L, rinv, B, X0.clone())
+    same(f"K2 gated ({bool(gate)}) {tag}", got, want)
+    if bool(gate):
+        same(f"K2 gated {tag} against K2", got,
+             bk.band_fwd_solve(L, rinv, B))
+
+
 def check_solve_orders(bk, dev, g):
     """K2, K3 and K5 at every register-window width (bw = 1..8, d = D,
     r = 1 and 3) against the one plain version of each, which sums a
@@ -574,6 +636,9 @@ def check_other_shapes(bk, dev):
             check_close(f"K1 {name} {tag}", a, b)
         if q:
             check_close(f"K1 Y {tag}", Y, Yp)
+            for gate in (False, True):
+                check_gated(bk, L, rinv, C, Y,
+                            torch.tensor(gate, device=dev), tag)
         B = torch.randn((d, 5), device=dev, dtype=torch.float64)
         for name, fn, plain in (
                 ("K2", bk.band_fwd_solve, bk.band_fwd_solve_plain),
@@ -843,6 +908,58 @@ def check_pinned_schur(batched, be, ys):
             f"1e-6); a pivot clamped or a tail off its plain route: "
             f"{clamped}")
         require(gap < 1e-6 and not clamped,
+                f"replicate half log-det at theta_IWP = {t_iwp:g}")
+
+
+def check_one_schur_tail(batched, be, ys, thetas=SCHUR_THETAS):
+    """Both band engines form the Schur tail by one function (ROADMAP
+    Queue 3 #6): at the headline design, each system at its one-response
+    mode, the replicate engine's tail S on the one-response engine's
+    factor, scalings and weights is the same bits, each system's tail
+    takes the same route (plain or chol_jittered's jitter) in both
+    engines, and the half log-dets agree to SCHUR_RTOL."""
+    log("== phase 6 (one Schur tail): the replicate and one-response "
+        f"engines' half log-dets at theta_IWP = {list(thetas)}")
+    R = len(ys)
+    b2 = batched.build_batched(be, ys)
+    for t_iwp in thetas:
+        th = torch.tensor([t_iwp], dtype=torch.float64, device=be.device)
+        thR = th.expand(R).contiguous()
+        one, states, parts = [], [], []
+        with torch.no_grad():
+            for r in range(R):
+                br = be.with_y(ys[r])
+                st = br.laplace_nll(th)[1]
+                band_s, C_s, _, sc, sd, wts = br._assemble_scaled(*st, th)
+                f = br._factor_scaled(band_s, C_s, sc, sd, wts, th)
+                S = br._tail_schur(f.L, f.rinv, f.Y, sc, sd, wts, th)
+                one.append(float(br.half_logdet_H((f, sc, sd))))
+                states.append(st)
+                parts.append((f, sc, sd, wts, S))
+            S_b = b2._tail_schur(
+                torch.stack([p[0].L for p in parts]),
+                torch.stack([p[0].rinv for p in parts]),
+                torch.stack([p[0].Y for p in parts]),
+                *(torch.stack([p[i] for p in parts]) for i in (1, 2, 3)),
+                thR)
+            V, tail = (torch.stack(a) for a in zip(*states))
+            fb = b2.hessian_factor(V, tail, thR)
+            got = b2.half_logdet_H(fb).cpu().numpy()
+        same_S = all(torch.equal(S_b[r], parts[r][4]) for r in range(R))
+        left_one = [bool(p[0].tail_left) for p in parts]
+        left_b = fb[0].tail_left.tolist()
+        clamped = [bool(p[0].clamped) for p in parts]
+        gap = np.abs(got - np.asarray(one))
+        log(f"  theta_IWP = {t_iwp:g}: replicate {np.round(got, 6).tolist()}"
+            f", one-response {np.round(one, 6).tolist()}, gap "
+            f"{gap.max():.3e} (bit for bit: {bool(np.all(gap == 0))}); S "
+            f"on the same inputs bit for bit: {same_S}; pivots clamped "
+            f"{clamped}, tail off its plain route: one-response {left_one},"
+            f" replicate {left_b}")
+        require(same_S, f"one Schur tail at theta_IWP = {t_iwp:g}")
+        require(left_one == left_b,
+                f"the tails' route at theta_IWP = {t_iwp:g}")
+        require(np.all(gap <= SCHUR_RTOL * np.abs(np.asarray(one))),
                 f"replicate half log-det at theta_IWP = {t_iwp:g}")
 
 
@@ -2101,8 +2218,7 @@ def dense_fit(tbg, formula, **kw):
     fit = tbg.model_fit(formula, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    stats = dict(fit.mod.backend.stats) if hasattr(fit.mod, "backend") \
-        else {}
+    stats = dict(getattr(getattr(fit.mod, "backend", None), "stats", {}))
     return fit, wall, stats, (torch.cuda.max_memory_allocated()
                               - held) / 2 ** 20
 
@@ -2232,7 +2348,33 @@ def phase_lynx(tbg, dense_backend, kernels, dev):
     require(spread > 1.5, "lynx predict spread")
     require(np.all(np.isfinite(fit.var_density(component="year")["post"])),
             "lynx var_density finite")
-    return wall
+    # the same vignette on the banded route: the sGP driver interleaved
+    # into a band, the IID term in the tail
+    kernels[0]()
+    bfit, bwall, _, bpeak = dense_fit(tbg, LYNX_FORMULA, device=dev,
+                                      engine="banded", **lynx_kwargs(tbg))
+    launches = kernels[1]()
+    be = bfit.mod.backend
+    log(f"  banded route: {type(be).__name__} d={be.d} dpad={be.dpad} "
+        f"bw={be.Wl - 1} q={be.q}; {bwall:.3f} s wall, peak "
+        f"{bpeak:.1f} MiB; launches {launches}")
+    require(getattr(be, "T_is_root", False),
+            "the banded lynx fit drives its band with the sGP term")
+    gap_lnc = abs(bfit.mod.lognormconst - fit.mod.lognormconst)
+    ts, tsb = fit.theta_summary(), bfit.theta_summary()
+    gap_th = max(abs(ts[k]["mean"] - tsb[k]["mean"]) for k in ts)
+    log(f"  banded: mode {np.round(bfit.mod.mode, 9).tolist()}, "
+        f"lognormconst {bfit.mod.lognormconst:.9f}; against the dense fit: "
+        f"lognormconst {gap_lnc:.3e} (tolerance {LYNX_BANDED_LNC_TOL:g}), "
+        f"theta means {gap_th:.3e} (tolerance {LYNX_BANDED_THETA_TOL:g})")
+    require(gap_lnc < LYNX_BANDED_LNC_TOL and gap_th < LYNX_BANDED_THETA_TOL,
+            "banded lynx against the dense lynx fit")
+    require(all(launches[k] > 0 for k in ("band_factor", "band_fwd_solve",
+                                          "band_bwd_solve", "band_takahashi",
+                                          "band_bwd_multi")),
+            "K1-K5 launched by the banded lynx fit")
+    require(np.all(np.isfinite(bfit.samps)), "banded lynx draws")
+    return wall, bwall
 
 
 def dense_boundary_cases():
@@ -2309,6 +2451,199 @@ def phase_dense_boundary(tbg, dense_backend, kernels, dev):
     return wall1, wall2, gwall, nwall
 
 
+BAND_KERNELS = ("band_factor", "band_fwd_solve", "band_bwd_solve",
+                "band_takahashi", "band_bwd_multi")
+
+
+def gauss2_backend(dev, n=N_OBS, k=K_KNOTS):
+    """bench_extra.py's _build_iwp(n, k, "Gaussian") on the port: the
+    headline generator's x with a Gaussian response, IWP3 with no dense
+    design, an intercept, tail priors 0.01."""
+    from bayesgp_torch import terms
+    from bayesgp_torch.fast.iwp import build_fast_iwp
+    from bayesgp_torch.model import build
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(0.0, 365.0, n))
+    f_true = 1.5 + 0.8 * np.sin(2 * np.pi * x / 90.0) + 0.002 * x
+    y = f_true + 0.3 * rng.normal(size=n)
+    inst = terms.build_iwp_term("x", x, order=3, k=k, materialize_B=False)
+    dmf = [np.ones((n, 1))]
+    md = build.build_model_data([inst], dmf, y, "Gaussian",
+                                dense_design=False)
+    xf = np.concatenate([inst.X] + dmf, axis=1)
+    pt = np.full(xf.shape[1], 0.01)
+    return build_fast_iwp(inst, md, xf, pt, np.zeros_like(pt), inst.x_data,
+                          device=dev)
+
+
+def timed_aghq(aghq, sampling, be, k, M, gen):
+    """(fit, draws, fit wall s, draws wall s, Laplace evaluations and
+    Newton steps, peak device MiB above what was held) of one AGHQ fit of
+    a fast backend and its M posterior draws."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with CountCalls(type(be), "value_and_grad", "laplace_eval_full",
+                    "newton_step") as calls:
+        t0 = time.perf_counter()
+        fit = aghq.aghq_fit(be, k=k)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        draws = sampling.sample_marginal(fit, M, gen)[0]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return (fit, draws, t1 - t0, t2 - t1, dict(calls.calls),
+            (torch.cuda.max_memory_allocated() - held) / 2 ** 20)
+
+
+def phase_gauss2(bk, dev):
+    """gauss2: the headline design with a Gaussian response (two
+    hyperparameters), fitted twice, the fits equal bit for bit; the
+    kernel engine against the plain engine at the mode; the Laplace
+    value's noise at the mode from warm states."""
+    from bayesgp_torch.inference import aghq, sampling
+    log(f"== phase 21: gauss2 (bench_extra.py: n={N_OBS}, IWP3 "
+        f"k={K_KNOTS}, Gaussian, s=2, AGHQ k=4, M={M_DRAWS})")
+    be = gauss2_backend(dev)
+    gen = torch.Generator(device=dev)
+    out = []
+    for i in range(2):
+        gen.manual_seed(0)
+        bk.reset_launches()
+        fit, draws, wall, dwall, calls, peak = timed_aghq(
+            aghq, sampling, be, 4, M_DRAWS, gen)
+        launches = dict(bk.launches)
+        out.append((fit, draws))
+        log(f"  fit {i + 1}: {wall:.3f} s wall, draws {dwall:.3f} s; "
+            f"value_and_grad {calls['value_and_grad']}, node evaluations "
+            f"{calls['laplace_eval_full']}, Newton steps "
+            f"{calls['newton_step']}; launches {launches}; peak device "
+            f"memory {peak:.1f} MiB")
+        if i == 0:
+            first = (wall, calls, launches, peak)
+    (m, draws), (m2, draws2) = out
+    same = (np.array_equal(m.mode, m2.mode)
+            and m.lognormconst == m2.lognormconst
+            and np.array_equal(m.lognll, m2.lognll)
+            and np.array_equal(draws, draws2))
+    log(f"  mode {np.round(m.mode, 6).tolist()}, lognormconst "
+        f"{m.lognormconst:.6f}, Hessian {np.round(m.hessian, 4).tolist()}; "
+        f"the two fits equal bit for bit: {same}")
+    require(same, "gauss2: two fits on the card agree bit for bit")
+    require(np.all(np.isfinite(m.mode)) and np.all(np.isfinite(draws)),
+            "finite gauss2 mode and draws")
+    missing = [k for k in BAND_KERNELS if first[2][k] <= 0]
+    require(not missing, f"K1-K5 launched by the gauss2 fit: {missing}")
+    # the kernel engine against the plain engine at the mode, from the
+    # node state nearest it
+    j = int(np.argmin(np.linalg.norm(m.nodes - m.mode, axis=1)))
+    check_engines_at(bk, be, m.mode, m.states[j][:2], "gauss2")
+    # the Laplace value's noise: the mode evaluated from a cold state and
+    # from the states of theta +- 0.5, +- 1, one coordinate at a time
+    th = torch.tensor(m.mode, dtype=torch.float64, device=dev)
+    with torch.no_grad():
+        vals = [float(be.laplace_eval_full(th, be.init_state())[0])]
+        for i in range(len(m.mode)):
+            for step in GAUSS2_STEPS:
+                e = torch.zeros_like(th)
+                e[i] = step
+                st = be.laplace_eval_full(th + e, be.init_state())[1]
+                vals.append(float(be.laplace_eval_full(th, st)[0]))
+    spread = max(vals) - min(vals)
+    log(f"  Laplace nll at the mode from {len(vals)} warm states: "
+        f"{[round(v, 9) for v in vals]}; spread {spread:.3e} nats")
+    require(math.isfinite(spread), "finite gauss2 Laplace values")
+    return first, spread
+
+
+def check_engines_at(bk, be, mode, state, label):
+    """The kernel engine against the plain engine (bk.PLAIN) at (theta,
+    V, tail): the Laplace value and its gradients, the half log-det, a
+    Newton solve, and the Laplace nll with its theta gradient at theta +
+    0.05 warm from the state, to 1e-9 (phases 5 and 15)."""
+    V0, t0 = state
+    theta = torch.tensor(mode, dtype=torch.float64, device=be.device)
+    plain = dataclasses.replace(be, engine=be.engine.with_ops(bk.PLAIN))
+    out = {}
+    for name, b in (("kernels", be), ("plain", plain)):
+        args = [x.clone().requires_grad_(True) for x in (V0, t0, theta)]
+        F = b._laplace_value(*args)
+        gV, gt, gth = torch.autograd.grad(F, args)
+        with torch.no_grad():
+            factor = b.hessian_factor(V0, t0, theta)
+            zV, zt = b.solve_H(factor, *b.grad_W(V0, t0, theta))
+        nll, g, _ = b.value_and_grad(theta + 0.05, (V0, t0))
+        out[name] = dict(F=F.detach(), gV=gV, gt=gt, gth=gth,
+                         hld=b.half_logdet_H(factor), zV=zV, zt=zt, nll=nll,
+                         g=g)
+    for key in out["kernels"]:
+        check_close(f"{label} at the mode: {key}", out["kernels"][key],
+                    out["plain"][key], rtol=1e-9)
+    log(f"  {label}: Laplace nll at theta + 0.05 "
+        f"{float(out['kernels']['nll']):.9f}, theta gradient "
+        f"{out['kernels']['g'].cpu().numpy().tolist()} (kernels), "
+        f"{out['plain']['g'].cpu().numpy().tolist()} (plain)")
+
+
+def two_smooths_data(n=TWO_SMOOTHS_N):
+    """bench_extra.py's bench_two_smooths generator."""
+    rng = np.random.default_rng(1)
+    x = np.sort(rng.uniform(0.0, 100.0, n))
+    season = 0.6 * np.sin(2 * np.pi * x / 10.0)
+    trend = 0.02 * x + 0.4 * np.sin(x / 15.0)
+    y = trend + season + 0.3 * rng.normal(size=n)
+    return {"x": x, "xs": x.copy(), "y": y}
+
+
+def phase_two_smooths(tbg, bk, dev):
+    """two_smooths: an IWP2 and an sGP smooth with a Gaussian response
+    (s = 3), held to the golden mode, nll and stationarity of
+    tests/test_two_smooth_golden.py; then K1-K5 at the sGP driver's band
+    against their plain versions, with bound and library times."""
+    log(f"== phase 22: two_smooths (bench_extra.py, BASELINE config 4: "
+        f"n={TWO_SMOOTHS_N}, IWP2 k={TWO_SMOOTHS_K} + sGP period 10 "
+        f"k={TWO_SMOOTHS_K}, Gaussian, s=3, AGHQ k=3, M=1000)")
+    bk.reset_launches()
+    fit, wall, _, peak = dense_fit(
+        tbg, TWO_SMOOTHS_FORMULA, data=two_smooths_data(),
+        family="Gaussian", M=1000, seed=0, aghq_k=3, device=dev,
+        env={"k_iwp": TWO_SMOOTHS_K, "k_sgp": TWO_SMOOTHS_K})
+    launches = dict(bk.launches)
+    be, m = fit.mod.backend, fit.mod
+    shape = (be.dpad, be.Wl - 1, be.q)
+    log(f"  {wall:.3f} s wall, peak {peak:.1f} MiB: {type(be).__name__}, "
+        f"sGP driver {bool(getattr(be, 'T_is_root', False))}, (d, bw, q) = "
+        f"({be.d}, {be.Wl - 1}, {be.q}), dpad {be.dpad}; launches "
+        f"{launches}")
+    require(getattr(be, "T_is_root", False), "two_smooths drives its band "
+            "with the sGP term")
+    gap = float(np.abs(m.mode - np.asarray(TWO_SMOOTHS_MODE)).max())
+    th = torch.tensor(m.mode, dtype=torch.float64, device=dev)
+    nll, g, _ = be.value_and_grad(th, be.init_state())
+    nll, gmax = float(nll), float(g.abs().max())
+    log(f"  mode {np.round(m.mode, 6).tolist()} (golden {TWO_SMOOTHS_MODE},"
+        f" gap {gap:.4f}, tolerance {TWO_SMOOTHS_MODE_TOL}); nll at the "
+        f"mode {nll:.4f} (golden {TWO_SMOOTHS_NLL} +- "
+        f"{TWO_SMOOTHS_NLL_TOL}), max|gradient| {gmax:.3e} (< "
+        f"{TWO_SMOOTHS_GRAD_MAX}); lognormconst {m.lognormconst:.6f}")
+    require(gap < TWO_SMOOTHS_MODE_TOL, "two_smooths mode")
+    require(abs(nll - TWO_SMOOTHS_NLL) < TWO_SMOOTHS_NLL_TOL,
+            "two_smooths nll at the mode")
+    require(gmax < TWO_SMOOTHS_GRAD_MAX, "two_smooths stationarity")
+    require(np.all(np.isfinite(fit.samps)), "two_smooths draws")
+    missing = [k for k in BAND_KERNELS if launches[k] <= 0]
+    require(not missing, f"K1-K5 launched by two_smooths: {missing}")
+    rows, arrays = check_band_shape(bk, dev, *shape, seed=40, m=shape[0])
+    lib = library_times(dev, *(arrays[i] for i in (0, 1, 2, 4, 5)))
+    for name, r in rows.items():
+        r.update(library_ms=lib[name], launches=launches[name])
+        log(f"  {name} at the sGP driver's {shape}: kernel {r['ms']:.4f} "
+            f"ms, plain {r['plain_ms']:.1f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']}), {launches[name]} launches in the fit")
+    return wall, rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2355,6 +2690,7 @@ def main():
     rep_launches, (ys16, modes16), per_fit = phase_replicates(
         reps, batched, bb, be, dev)
     phase_batched_fixed_point(batched, bb, be, ys16, modes16)
+    check_one_schur_tail(batched, be, ys16[:2])
     launches.update(rep_launches)
     phase_scatter_small(tbg, dev)
     ifit, iid_launches, iwall1, iwall2, k7_by_r = phase_scatter_headline(
@@ -2392,8 +2728,10 @@ def main():
     counts = (lambda: reset_all_launches(bk, bb, cd),
               lambda: kernel_launches(bk, bb, cd))
     cwall1, cwall2, cstats = phase_covid(tbg, DenseBackend, counts, dev)
-    lwall = phase_lynx(tbg, DenseBackend, counts, dev)
+    lwall, lbwall = phase_lynx(tbg, DenseBackend, counts, dev)
     dwalls = phase_dense_boundary(tbg, DenseBackend, counts, dev)
+    (gwall, gcalls, glaunches, gpeak), gspread = phase_gauss2(bk, dev)
+    two_wall, sgp_rows = phase_two_smooths(tbg, bk, dev)
 
     kernels = []
     for name, r in rows.items():
@@ -2413,6 +2751,14 @@ def main():
                     "bound_ms_r1", "plain_ms_r1", "launches_by_r"):
             if key in r:        # K2/K3/K7: device times; K7 at r = 1
                 row[key] = r[key]
+        if name in glaunches:   # K1-K5: launches in the gauss2 fit
+            row["launches_gauss2"] = glaunches[name]
+        base = [k for k, v in CHUNKED.items() if v[0] == name]
+        if base:                # K1c-K5c: K1-K5 at the sGP driver's band
+            sr = sgp_rows[base[0]]
+            row["sgp_driver"] = {k: sr[k] for k in (
+                "shape", "launches", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "err")}
         if "shape" in r:        # K1c-K5c: K1-K5 at the merged shape
             row.update(shape=r["shape"], plain_rows=r["plain_rows"],
                        ms_by_shape=r["ms_by_shape"])
@@ -2434,6 +2780,9 @@ def main():
         f"{cwall2:.3f} ({cstats}); lynx {lwall:.3f}; boundary cell Poisson "
         f"first {dwalls[0]:.3f}, second {dwalls[1]:.3f}, Gaussian s=2 "
         f"{dwalls[2]:.3f}, nlminb {dwalls[3]:.3f}")
+    log(f"banded lynx wall s: {lbwall:.3f}; gauss2 fit wall s {gwall:.3f} "
+        f"({gcalls}, peak {gpeak:.1f} MiB), Laplace value spread at its "
+        f"mode {gspread:.3e} nats; two_smooths fit wall s {two_wall:.3f}")
     log(f"script wall s: {time.perf_counter() - T_START:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())

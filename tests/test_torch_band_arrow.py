@@ -2,6 +2,14 @@
 the JAX package's Pallas engine (interpret mode), its f64 block engine
 and dense numpy, on the same numpy arrowhead systems.
 
+The engine's differentiable half log-det is schur_half_logdet, which
+takes the Schur tail's derivative through a tail S the caller forms. Here
+S = Hd - C^T Hb^{-1} C is formed densely and differentiably in (band, C,
+Hd) (_half_logdet), and the tail the factor takes is Hd - Y^T Y from the
+engine's own Y, so the chain rule through S turns schur_backward's
+cotangents into the arrowhead's (band, C, Hd) cotangents, which the
+block engine's autodiff gives.
+
 Tolerances: half log-det and solves 1e-10 (both sides f64 or
 double-float); draws 1e-10 against dense f64, 1e-4 against the f32
 Pallas multi-RHS kernel; the half log-det gradient 1e-9 against the
@@ -40,6 +48,37 @@ def _arrow_problem(rng, d, bw, q):
     return band, C, Hd, Hfull
 
 
+def _schur_from_Y(Hd):
+    """The factor's tail, Hd - Y^T Y from the engine's Y = L^{-1} C."""
+    def schur(L, rinv, Y):
+        return Hd.detach() - Y.mT @ Y
+    return schur
+
+
+def _dense_band(bands):
+    """(..., d, d) symmetric matrices of (..., d, bw+1) lower bands, each
+    off-diagonal band entry feeding both of its places."""
+    d = bands.shape[-2]
+    H = torch.diag_embed(bands[..., 0])
+    for o in range(1, bands.shape[-1]):
+        low = torch.diag_embed(bands[..., :d - o, o], offset=-o)
+        H = H + low + low.mT
+    return H
+
+
+def _half_logdet(eng, band, C, Hd, f=None):
+    """Differentiable arrowhead half log-det(s) of a one-system or batched
+    engine: schur_half_logdet with S = Hd - C^T Hb^{-1} C formed densely
+    in (band, C, Hd), from the factor f (factored here when None)."""
+    if f is None:
+        f = eng.factor(band, C, _schur_from_Y(Hd))
+    if eng.q:
+        S = Hd - C.mT @ torch.linalg.solve(_dense_band(band), C)
+    else:
+        S = Hd
+    return eng.schur_half_logdet(band, S, f)
+
+
 @pytest.mark.parametrize("q", [0, 5])
 def test_engine_matches_pallas_block_and_dense(q):
     rng = np.random.default_rng(2)
@@ -62,7 +101,7 @@ def test_engine_matches_pallas_block_and_dense(q):
                          argnums=(0, 1, 2))(band, C, Hd))
     hld_p, zbp, xbp, g_b = quick_jit(jax_ref)(band, C, Hd, rb, rd, zbn, zdn)
     targs = (torch.tensor(band.T.copy()), torch.tensor(C), torch.tensor(Hd))
-    f = eng.factor(*targs)
+    f = eng.factor(targs[0], targs[1], _schur_from_Y(targs[2]))
 
     hld = float(eng.half_logdet(f))
     hld_ref = 0.5 * np.linalg.slogdet(Hfull)[1]
@@ -91,7 +130,7 @@ def test_engine_matches_pallas_block_and_dense(q):
 
     # Takahashi-based autograd gradient vs f64 autodiff through blocks
     leaves = [t.clone().requires_grad_(True) for t in targs]
-    g = torch.autograd.grad(eng.arrow_half_logdet(*leaves), leaves,
+    g = torch.autograd.grad(_half_logdet(eng, *leaves), leaves,
                             allow_unused=True)
     for gt, gb, t in zip(g, g_b, targs):
         gt = np.zeros(t.shape) if gt is None else gt.numpy()
@@ -100,9 +139,9 @@ def test_engine_matches_pallas_block_and_dense(q):
             gb = gb.T                       # JAX band layout is (bw+1, d)
         np.testing.assert_allclose(gt, gb, rtol=1e-9, atol=1e-12)
 
-    # the given-factor variant: same value, same cotangents
+    # from the factor above: same value, same cotangents
     leaves2 = [t.clone().requires_grad_(True) for t in targs]
-    v2 = eng.arrow_half_logdet_given(*leaves2, f)
+    v2 = _half_logdet(eng, *leaves2, f=f)
     assert float(v2.detach()) == hld
     g2 = torch.autograd.grad(v2, leaves2, allow_unused=True)
     for a, b in zip(g, g2):

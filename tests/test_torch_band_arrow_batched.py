@@ -36,7 +36,8 @@ from bayesgp_tpu.fast.batched import BlockVmapEngine
 from bayesgp_torch.linalg.band_arrow import BandArrowEngine
 from bayesgp_torch.linalg.band_arrow_batched import BandArrowBatchedEngine
 
-from test_torch_band_arrow import _arrow_problem
+from test_torch_band_arrow import _arrow_problem, _half_logdet
+from test_torch_band_arrow import _schur_from_Y as _schur_from_Y_one
 
 from _jax_quick import quick_jit
 
@@ -47,31 +48,7 @@ D, BW, Q, NR, S = 48, 3, 5, 4, 8
 
 def _schur_from_Y(C, Hd):
     """The factor's tails, Hd - Y^T Y from the engine's Y = L^{-1} C."""
-    def schur(L, rinv, Y):
-        return Hd.detach() - Y.mT @ Y
-    return schur
-
-
-def _dense_band(bands):
-    """(NR, d, d) symmetric matrices of (NR, d, bw+1) lower bands, each
-    off-diagonal band entry feeding both of its places."""
-    d = bands.shape[1]
-    H = torch.diag_embed(bands[:, :, 0])
-    for o in range(1, bands.shape[2]):
-        low = torch.diag_embed(bands[:, :d - o, o], offset=-o)
-        H = H + low + low.mT
-    return H
-
-
-def _half_logdet(eng, bands, C, Hd):
-    """Differentiable (NR,) arrowhead half log-dets: schur_half_logdet
-    with S = Hd - C^T Hb^{-1} C formed densely in (bands, C, Hd)."""
-    f = eng.factor(bands, C, _schur_from_Y(C, Hd))
-    if eng.q:
-        S = Hd - C.mT @ torch.linalg.solve(_dense_band(bands), C)
-    else:
-        S = Hd
-    return eng.schur_half_logdet(bands, S, f)
+    return _schur_from_Y_one(Hd)
 
 
 @pytest.fixture(scope="module")
@@ -117,7 +94,7 @@ def test_cotangents_match_one_system_engine(systems):
     one = BandArrowEngine(D, BW, Q)
     for r in range(NR):
         leaves = [t[r].clone().requires_grad_(True) for t in s["targs"]]
-        g1 = torch.autograd.grad(one.arrow_half_logdet(*leaves), leaves)
+        g1 = torch.autograd.grad(_half_logdet(one, *leaves), leaves)
         for gb, g in zip(s["grads"], g1):
             np.testing.assert_allclose(gb[r].numpy(),
                                        (s["ct"][r] * g).numpy(),
@@ -186,7 +163,7 @@ def _check_gate_per_system():
     for r, cond in ((0, 1.0), (2, np.linalg.cond(big_full))):
         tol = max(1e-10, cond * np.finfo(float).eps)
         lv = [torch.tensor(a).requires_grad_(True) for a in parts[r]]
-        for a, b in zip(gb, torch.autograd.grad(one.arrow_half_logdet(*lv),
+        for a, b in zip(gb, torch.autograd.grad(_half_logdet(one, *lv),
                                                 lv)):
             assert b.abs().max() > 0
             np.testing.assert_allclose(a[r].numpy(), b.numpy(), rtol=tol,

@@ -44,10 +44,14 @@ CPU in f64.
    route (IWP k = 15 + a 5-level IID term, n = 200, engine='banded'):
    Laplace nll and gradient at three thetas, rtol 1e-9. The gate is open
    at the fit's mode; with a pivot floor above every pivot K1 clamps and
-   the fit's warning fires. And the routes, each a build only: 'auto'
-   merges > 512 clustered levels, densifies 600 scattered levels into the
-   tail with a warning, and an sGP driver and the Gaussian family raise
-   naming their ROADMAP item.
+   the fit's warning fires. The merged problem with a Gaussian response
+   (three hyperparameters, the noise last): em_dims, and the Laplace
+   nll and theta gradient at three thetas against the JAX package's
+   (value rtol 1e-9, gradient 1e-8 of its largest entry: the prior's
+   rounding, as above). And the routes, each a build only: 'auto'
+   merges > 512 clustered levels (with a Gaussian response too),
+   densifies 600 scattered levels into the tail with a warning, and
+   densifies the levels beside an sGP driver, which drives the band.
 
 Every JAX program is traced and compiled once in the module fixture,
 with XLA's CPU optimizations off (_jax_quick.XLA_QUICK): each runs a few
@@ -76,6 +80,7 @@ from bayesgp_torch.linalg import band_kernels as tbk
 from bayesgp_torch.model import build as TB
 
 from _jax_quick import XLA_QUICK
+from test_torch_band_arrow import _half_logdet, _schur_from_Y
 
 torch.set_num_threads(1)
 
@@ -201,40 +206,45 @@ def _compile_all(programs):
             for k, (fn, spec) in programs.items()}
 
 
-@pytest.fixture(scope="module")
-def jax_ref():
-    """The JAX package's backends of the merged and the tail-term model,
-    and every JAX program the module runs, compiled once."""
+def _merged_backend(T, B, build, family, **kw):
+    """A package's backend of the merged problem (T, B: its terms and
+    build modules)."""
     data = _merged_data()
     dmf = [np.ones((len(data["y"]), 1))]
-    jterms = _merged_terms(JT, data)
-    jmd = JB.build_model_data(jterms, dmf, data["y"], "Poisson",
-                              dense_design=False)
-    jbe = jbuild(jterms, jmd, dmf, np.full(1, 0.01), np.zeros(1))
+    terms = _merged_terms(T, data)
+    md = B.build_model_data(terms, dmf, data["y"], family,
+                            dense_design=False)
+    return build(terms, md, dmf, np.full(1, 0.01), np.zeros(1), **kw)
+
+
+@pytest.fixture(scope="module")
+def jax_ref():
+    """The JAX package's backends of the merged, the tail-term and the
+    Gaussian merged model, and every JAX program the module runs,
+    compiled once."""
+    jbe = _merged_backend(JT, JB, jbuild, "Poisson")
     asm = japi.assemble_model(TAIL_FORMULA, data=_tail_data(),
                               family="Poisson", engine="banded")
     jte = jbuild(asm["instances"], asm["md"], asm["design_mat_fixed"],
                  asm["bf_prec"], asm["bf_mean"])
+    jga = _merged_backend(JT, JB, jbuild, "Gaussian")
     programs = {shape: _arrow_program(*shape) for shape in ARROW_SHAPES}
     programs.update(
-        vg=_vg_program(jbe), tail_vg=_vg_program(jte), gate=_gate_program(),
+        vg=_vg_program(jbe), tail_vg=_vg_program(jte),
+        gauss_vg=_vg_program(jga), gate=_gate_program(),
         point=(lambda V, t, th: (jbe.neg_log_post(V, t, th),
                                  jbe.grad_W(V, t, th),
                                  jbe.newton_step(V, t, th)),
                _spec((jbe.dpad,), (jbe.q,), (2,))))
-    return jbe, jte, _compile_all(programs)
+    return jbe, jte, _compile_all(programs), jga
 
 
 @pytest.fixture(scope="module")
 def merged():
     """The port's backend of the merged problem and its AGHQ fit."""
     data = _merged_data()
-    dmf = [np.ones((len(data["y"]), 1))]
-    tterms = _merged_terms(TT, data)
-    tmd = TB.build_model_data(tterms, dmf, data["y"], "Poisson",
-                              dense_design=False)
-    tbe = tbanded.build_banded_backend(tterms, tmd, dmf, np.full(1, 0.01),
-                                       np.zeros(1), device="cpu")
+    tbe = _merged_backend(TT, TB, tbanded.build_banded_backend, "Poisson",
+                          device="cpu")
     fit = tapi.model_fit(data=data, response="y",
                          terms=_merged_terms(TT, data), family="Poisson",
                          engine="banded", aghq_k=3, M=M_DRAWS, seed=0,
@@ -255,7 +265,7 @@ def test_engine_matches_jax_chunked_engine(jax_ref):
         eng = tba.BandArrowEngine(d, bw, q)
         targs = (torch.tensor(band.T.copy()), torch.tensor(C),
                  torch.tensor(Hd))
-        f = eng.factor(*targs)
+        f = eng.factor(targs[0], targs[1], _schur_from_Y(targs[2]))
         hld = float(eng.half_logdet(f))
         assert abs(hld - 0.5 * np.linalg.slogdet(Hfull)[1]) < 1e-10
         assert abs(hld - float(hld_p)) < 1e-10
@@ -281,7 +291,7 @@ def test_engine_matches_jax_chunked_engine(jax_ref):
                                    atol=1e-5 * np.abs(xref).max())
 
         leaves = [t.clone().requires_grad_(True) for t in targs]
-        g = torch.autograd.grad(eng.arrow_half_logdet(*leaves), leaves)
+        g = torch.autograd.grad(_half_logdet(eng, *leaves), leaves)
         Hinv = np.linalg.inv(Hfull)
         for gt, gp, ref in zip(g, g_p, (None, Hinv[:d, d:],
                                         0.5 * Hinv[d:, d:])):
@@ -300,7 +310,7 @@ def test_engine_matches_jax_chunked_engine(jax_ref):
     eng = tba.BandArrowEngine(d, bw, q)
     assert eng.dense_tail
     f = eng.factor(torch.tensor(band.T.copy()), torch.tensor(C),
-                   torch.tensor(Hd))
+                   _schur_from_Y(torch.tensor(Hd)))
     assert abs(float(eng.half_logdet(f))
                - 0.5 * np.linalg.slogdet(Hfull)[1]) < 1e-9
     rb, rd = rng.normal(size=d), rng.normal(size=q)
@@ -325,12 +335,13 @@ def test_engine_matches_jax_chunked_engine(jax_ref):
     d, bw = band.shape[0], band.shape[1] - 1
     eng = tba.BandArrowEngine(d, bw, 1)
     leaves = [torch.tensor(a).requires_grad_(True) for a in (band, C, Hd)]
-    f = eng.factor(*(x.detach() for x in leaves))
+    f = eng.factor(leaves[0].detach(), leaves[1].detach(),
+                   _schur_from_Y(leaves[2]))
     assert float((f.rinv ** -2).min()) > 0.5 * scale   # healthy pivots
     assert float((f.rinv ** -2).min()) > tbk.PIVOT_FLOOR
     assert not any(bool(x) for x in eng.gate_reasons(f))
     assert np.abs(np.linalg.inv(Hfull)).max() >= 1e12
-    g = torch.autograd.grad(eng.arrow_half_logdet(*leaves), leaves)
+    g = torch.autograd.grad(_half_logdet(eng, *leaves, f=f), leaves)
     g_ref = programs["gate"](band.T.copy(), C, Hd)
     tol = np.linalg.cond(Hfull) * np.finfo(float).eps
     assert tol < 1e-13
@@ -344,9 +355,10 @@ def test_engine_matches_jax_chunked_engine(jax_ref):
     sick = band.copy()
     sick[10, 0] = -0.8 * scale
     leaves = [torch.tensor(a).requires_grad_(True) for a in (sick, C, Hd)]
-    f = eng.factor(*(x.detach() for x in leaves))
+    f = eng.factor(leaves[0].detach(), leaves[1].detach(),
+                   _schur_from_Y(leaves[2]))
     assert bool(eng.gate_reasons(f)[0])          # a pivot was clamped
-    g = torch.autograd.grad(eng.arrow_half_logdet(*leaves), leaves)
+    g = torch.autograd.grad(_half_logdet(eng, *leaves, f=f), leaves)
     assert all(not x.any() for x in g)
 
     # a band wider than the kernels take is refused in the wrapper
@@ -356,7 +368,7 @@ def test_engine_matches_jax_chunked_engine(jax_ref):
 
 
 def test_merged_build_and_fixed_point_match_jax(jax_ref, merged):
-    jbe, _, fns = jax_ref
+    jbe, _, fns, _ = jax_ref
     tbe, _ = merged
     assert (tbe.d, tbe.dpad, tbe.Wl, tbe.q) == (44, 48, 12, 2)
     assert (tbe.G, tbe.d_drv, tbe.w_real) == (jbe.G, jbe.d_drv, jbe.w_real)
@@ -448,7 +460,7 @@ def _check_prior_sum_of_squares(tbe, rng):
 
 
 def test_fit_tail_terms_and_routes(jax_ref, merged, monkeypatch):
-    _, jte, fns = jax_ref
+    _, jte, fns, jga = jax_ref
     _, fit = merged
     mod = fit.mod
     be = mod.backend
@@ -505,8 +517,23 @@ def test_fit_tail_terms_and_routes(jax_ref, merged, monkeypatch):
         np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-9,
                                    atol=1e-9)
 
-    # routes, a build each: many clustered levels merge into the band,
-    # scattered ones densify into the tail, an sGP driver is not ported
+    # the merged problem with a Gaussian response: the noise theta last
+    tga = _merged_backend(TT, TB, tbanded.build_banded_backend, "Gaussian",
+                          device="cpu")
+    assert tga.band_terms and tga.n_theta == 3
+    assert (tga.dpad, tga.q) == (jga.dpad, jga.q)
+    np.testing.assert_array_equal(tga.em_dims, np.asarray(jga.em_dims))
+    for th in ([0.0, 0.0, 0.0], [2.0, 1.0, -0.5], [-1.0, 2.5, 0.5]):
+        val, gr, _ = tga.value_and_grad(np.asarray(th), tga.init_state())
+        jval, jg = fns["gauss_vg"](np.asarray(th), z(tga.dpad), z(tga.q))
+        jg = np.asarray(jg)
+        np.testing.assert_allclose(float(val), float(jval), rtol=1e-9)
+        np.testing.assert_allclose(gr.numpy(), jg, rtol=1e-8,
+                                   atol=1e-8 * np.abs(jg).max())
+
+    # routes, a build each: many clustered levels merge into the band (a
+    # Gaussian response too), scattered ones densify into the tail, and so
+    # do the levels beside an sGP driver
     n = 1200
     rng = np.random.default_rng(5)
     x = np.sort(rng.uniform(0.0, 10.0, n))
@@ -520,8 +547,12 @@ def test_fit_tail_terms_and_routes(jax_ref, merged, monkeypatch):
         scattered = _build(fml, dict(base, g=np.arange(n) % 600.0),
                            "Poisson")
     assert not scattered.band_terms and scattered.engine.dense_tail
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        _build(fml, dict(base, g=g), "Gaussian")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        _build("y ~ f(x, model='sGP', period=2.0, k=10) + f(g, model='IID')",
-               dict(base, g=g), "Poisson", engine="banded")
+    gauss = _build(fml, dict(base, g=g), "Gaussian")
+    assert gauss.band_terms[0].d_size == len(np.unique(g))
+    assert gauss.n_theta == 3 and gauss.em_dims[2] == n
+    with pytest.warns(UserWarning, match="needs an IWP driver"):
+        sgp = _build("y ~ f(x, model='sGP', period=2.0, k=10) "
+                     "+ f(g, model='IID')", dict(base, g=g), "Poisson",
+                     engine="banded")
+    assert sgp.T_is_root and sgp.Wl == 12
+    assert [tb.size for tb in sgp.tail_terms] == [len(np.unique(g))]

@@ -12,12 +12,16 @@ Where the prior pins the driver (theta_IWP = 30 and 40, n = 2000, k =
 40) each replicate's half log-det equals the one-response backend's to
 1e-6: both form the Schur tail as a Gram of residuals (ROADMAP Queue 3
 #5; formed as Hd - Y^T Y the replicate engine was 3e-5 and 6e-5 off at
-theta_IWP = 40).
+theta_IWP = 40). Both engines form that tail by one function (ROADMAP
+Queue 3 #6): on the same inputs a system's S is the same bits in both,
+and on a design whose tail takes chol_jittered's jitter every system
+takes it in both engines, with half log-dets equal to 1e-9.
 
 Three tests, on purpose: pytest-xdist's file scheduler hands out files in
 order of their test counts, and a file of few tests lands at the end of
 the queue, where it cannot delay the long files of the JAX package.
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -111,6 +115,7 @@ def test_each_replicate_matches_one_response_backend():
         _check_each_replicate_matches_one_response_backend(pair)
         _check_laplace_eval_full_and_solve_per_replicate(pair)
     _check_schur_tail_where_the_prior_pins_the_driver()
+    _check_one_schur_tail_where_the_tail_is_jittered()
 
 
 def _check_nll_gradient_and_states_match_jax(pair):
@@ -205,3 +210,58 @@ def test_max_replicates_is_a_memory_cap():
     assert max_replicates(3, 100_000, 4) >= 64
     assert max_replicates(3, 100_000, 4) > max_replicates(3, 1_000_000, 4)
     assert max_replicates(3, 10 ** 12, 4) == 1
+
+
+def _check_one_schur_tail_where_the_tail_is_jittered(n=2000, k=40):
+    """Both engines form one Schur tail (fast/iwp.schur_gram): on the same
+    factor, scalings and weights a system's S is the same bits in the
+    replicate engine as in the one-response engine. The design takes
+    chol_jittered's jitter on every system: a fixed column twice, each
+    response at its one-response mode with a flat prior on both copies,
+    then the Hessian there taken with a prior precision of -1e-3 on the
+    second copy, so S is indefinite by ~1e-7 of its diagonal, far past
+    rounding. Each system's tail takes the jitter in both engines, and
+    their half log-dets agree to 1e-9 (the engines' linear predictors
+    round apart)."""
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(0.0, 365.0, n))
+    ys = rng.poisson(np.exp(1.5 + 0.8 * np.sin(2 * np.pi * x / 90.0)),
+                     size=(2, n)).astype(np.float64)
+    inst = tterms.build_iwp_term("x", x, order=3, k=k)
+    z = rng.normal(size=(n, 1))
+    dmf = [np.ones((n, 1)), z, z]
+    md = tbuild.build_model_data([inst], dmf, ys[0], "Poisson",
+                                 dense_design=False)
+    xf = np.concatenate([inst.X] + dmf, axis=1)
+    pt = np.full(xf.shape[1], 0.01)
+    pt[-2:] = 0.0
+    flat = build_fast_iwp(inst, md, xf, pt, np.zeros_like(pt), inst.x_data,
+                          device="cpu")
+    pt[-1] = -1e-3
+    base = dataclasses.replace(flat, prior_diag_tail=torch.tensor(pt))
+    tb = build_batched(base, ys)
+    for t_iwp in (0.0, 10.0):
+        th = torch.tensor([t_iwp])
+        th2 = torch.tensor([t_iwp, t_iwp])
+        parts, one, states = [], [], []
+        for r in range(2):
+            st = flat.with_y(ys[r]).laplace_nll(th)[1]
+            br = base.with_y(ys[r])
+            band_s, C_s, _, sc, sd, wts = br._assemble_scaled(*st, th)
+            f = br._factor_scaled(band_s, C_s, sc, sd, wts, th)
+            parts.append((f, sc, sd, wts,
+                          br._tail_schur(f.L, f.rinv, f.Y, sc, sd, wts, th)))
+            one.append(float(br.half_logdet_H((f, sc, sd))))
+            states.append(st)
+            assert bool(f.tail_left)
+        S_b = tb._tail_schur(
+            *(torch.stack(a) for a in zip(*((p[0].L, p[0].rinv, p[0].Y, p[1],
+                                              p[2], p[3]) for p in parts))),
+            th2)
+        for r in range(2):
+            assert torch.equal(S_b[r], parts[r][4])
+        V, tail = (torch.stack(a) for a in zip(*states))
+        fb = tb.hessian_factor(V, tail, th2)
+        assert bool(fb[0].tail_left.all())
+        np.testing.assert_allclose(tb.half_logdet_H(fb).numpy(), one,
+                                   rtol=1e-9, atol=0)

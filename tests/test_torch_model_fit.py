@@ -85,9 +85,9 @@ def test_unported_routes_raise():
                       device="cpu")
     # an IWP smooth plus 600 scattered levels: 'auto' takes the multi-term
     # banded engine, whose merge refuses scattered levels, and densifies
-    # them into its tail (as the JAX package does; a build, no fit); an
-    # sGP driver is the next route to port; the Gaussian family's third
-    # theta is not on scatter_iid
+    # them into its tail (as the JAX package does); an sGP smooth drives
+    # the band; a Gaussian response on scatter_iid carries a third theta
+    # (builds, no fit)
     n = 1200
     big = dict(_data(n=n), g=np.arange(n) % 600.0)
     iid = "y ~ f(x, model='IWP', order=3, k=20) + f(g, model='IID')"
@@ -96,9 +96,12 @@ def test_unported_routes_raise():
                                                family="Poisson"),
                            "auto", torch.device("cpu"))
     assert [t.size for t in be.tail_terms] == [600]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tbg.model_fit("y ~ f(x, model='sGP', period=50.0, k=10)", data=big,
-                      family="Poisson", engine="banded", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tbg.model_fit(iid, data=big, family="Gaussian",
-                      engine="scatter_iid", device="cpu")
+    sgp = tapi._backend(tapi.assemble_model(
+        "y ~ f(x, model='sGP', period=50.0, k=10)", data=big,
+        family="Poisson", engine="banded"), "banded", torch.device("cpu"))
+    assert sgp.T_is_root and (sgp.d, sgp.Wl) == (24, 12)
+    sbe = tapi._backend(tapi.assemble_model(iid, data=big,
+                                            family="Gaussian",
+                                            engine="scatter_iid"),
+                        "scatter_iid", torch.device("cpu"))
+    assert type(sbe).__name__ == "ScatterIIDBackend" and sbe.n_theta == 3

@@ -14,7 +14,11 @@ Laplace nll and inner mode, rtol 1e-9; the theta-gradient rtol 1e-8 (the
 prior quadratic's rounding, see the test); mode, lognormconst, node nlls
 and marginals 1e-5 absolute; the outer Hessian 1e-3 relative (central
 differences of noisy gradients); draw means within 5 Monte-Carlo
-standard errors of the conditional mode.
+standard errors of the conditional mode. A Gaussian model (IWP order 2, k
+= 10, 30 scattered levels, n = 400: three hyperparameters, the noise
+last) against the JAX package's backend: em_dims, and the Laplace nll and
+its theta gradient at three thetas, rtol 1e-9 and 1e-8 (the prior's
+rounding, as above).
 """
 import numpy as np
 import pytest
@@ -34,6 +38,7 @@ from _jax_quick import quick_jit
 torch.set_num_threads(1)
 
 FORMULA = "y ~ f(x, model='IWP', order=2, k=150) + f(g, model='IID')"
+GAUSS_FORMULA = "y ~ f(x, model='IWP', order=2, k=10) + f(g, model='IID')"
 M_DRAWS = 400
 
 
@@ -43,6 +48,15 @@ def _data(n=2000, q=40, seed=0):
     g = rng.integers(0, q, n).astype(float)          # scattered levels
     lin = 0.8 + 0.5 * np.sin(x) + 0.2 * rng.normal(size=q)[g.astype(int)]
     return {"x": x, "g": g, "y": rng.poisson(np.exp(lin)).astype(float)}
+
+
+def _gauss_data(n=400, q=30, seed=5):
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(0.0, 10.0, n))
+    g = rng.integers(0, q, n)
+    u = 0.3 * rng.normal(size=q)
+    y = 0.5 * np.sin(x) + u[g] + 0.3 * rng.normal(size=n)
+    return {"x": x, "g": g.astype(float), "y": y}
 
 
 @pytest.fixture(scope="module")
@@ -177,6 +191,22 @@ def test_build_and_fixed_point_match_jax(ref, port):
         _close(g.numpy(), vgj[1], 1e-8, "theta gradient")
         for x, y in zip(st, vgj[0][1]):
             _close(x.numpy(), y, 1e-9, "inner mode")
+
+    # a Gaussian response: the noise theta last on both packages
+    jasm, tasm = (pkg.assemble_model(GAUSS_FORMULA, data=_gauss_data(),
+                                     family="Gaussian", engine="scatter_iid")
+                  for pkg in (japi, tapi))
+    jga = jbuild(jasm["instances"], jasm["md"], jasm["design_mat_fixed"],
+                 jasm["bf_prec"], jasm["bf_mean"])
+    tga = tapi._backend(tasm, "scatter_iid", torch.device("cpu"))
+    np.testing.assert_array_equal(tga.em_dims, np.asarray(jga.em_dims))
+    np.testing.assert_array_equal(tga.em_dims, [9.0, 30.0, 400.0])
+    vgg = quick_jit(jax.value_and_grad(lambda th: jga.laplace_nll(th)[0]))
+    for th in ([1.0, 2.0, 2.0], [3.0, 0.5, 2.5], [-0.5, 1.0, 0.0]):
+        vj, gj = vgg(jnp.asarray(th, jnp.float64))
+        val, g, _ = tga.value_and_grad(T(th), tga.init_state())
+        _close(float(val), float(vj), 1e-9, "Gaussian nll")
+        _close(g.numpy(), np.asarray(gj), 1e-8, "Gaussian theta gradient")
 
 
 def test_aghq_fit_matches_jax(ref, port):

@@ -116,7 +116,7 @@ def point_report(be, ba, th, state):
         e0 = be.eta(V, t)
         band_s, C_s, Hd_s, sc, sd, wts = be._assemble_scaled(V, t, tht,
                                                              eta=e0)
-        f = be._factor_scaled(band_s, C_s, Hd_s, sc, sd, wts, tht)
+        f = be._factor_scaled(band_s, C_s, sc, sd, wts, tht)
         S_gram = be._tail_schur(f.L, f.rinv, f.Y, sc, sd, wts, tht)
         YtY = f.Y.T @ f.Y
         S_diff = Hd_s - YtY
