@@ -12,6 +12,7 @@ user script changes only its import.
 """
 from .device import DTYPE, resolve_device
 from .api import assemble_model, model_fit
+from .model.families import register_family
 from .formula import parse_formula, parse_f_call, f
 from .terms import (build_iwp_term, build_sgp_term, build_iid_term,
                     build_customized_term, normalize_sd_prior)
@@ -79,7 +80,7 @@ def summary(fit):
 
 __all__ = [
     "DTYPE", "assemble_model", "resolve_device",
-    "model_fit", "parse_formula", "parse_f_call",
+    "model_fit", "register_family", "parse_formula", "parse_f_call",
     "build_iwp_term", "build_sgp_term", "build_iid_term",
     "build_customized_term", "normalize_sd_prior", "FitResult",
     "compute_post_fun_iwp", "compute_post_fun_sgp",

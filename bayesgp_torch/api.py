@@ -2,11 +2,12 @@
 
 Accepts a formula string (the reference's `f()` vocabulary) or pre-built
 terms, assembles the model, runs the AGHQ fit on the dense backend (small
-models), the banded single-IWP backend, the multi-term banded backend or
-the scattered-IID backend, or the nlminb MAP with Gaussian draws, draws M
-posterior samples and returns a FitResult with the reference's
-sample-index partitions. Routes not ported yet raise NotImplementedError
-naming the ROADMAP item that ports them.
+models and every family that is not elementwise), the banded single-IWP
+backend, the multi-term banded backend or the scattered-IID backend, or
+the nlminb MAP with Gaussian draws, draws M posterior samples and returns
+a FitResult with the reference's sample-index partitions. Routes not
+ported yet raise NotImplementedError naming the ROADMAP item that ports
+them.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from . import formula as formula_mod
 from . import terms as terms_mod
 from .device import resolve_device
 from .model import build as build_mod
+from .model import families
 from .model.objective import to_device
 from .inference import aghq as aghq_mod
 from .inference import laplace as laplace_mod
@@ -63,8 +65,9 @@ def assemble_model(formula=None, data=None, method: str = "aghq",
                    family: str = "Gaussian", control_family=None,
                    control_fixed=None, size=None, cens=None,
                    weight=None, strata=None, env=None,
-                   customized_re=None, terms=None, fixed=None,
-                   response=None, engine: str = "auto") -> dict:
+                   customized_re=None, customized_template=None,
+                   terms=None, fixed=None, response=None,
+                   engine: str = "auto") -> dict:
     """Model assembly only (formula parsing, term construction, priors,
     ModelData): the pre-inference part of `model_fit`. Returns a dict
     with instances, md, design/prior arrays and the banded-path
@@ -83,10 +86,6 @@ def assemble_model(formula=None, data=None, method: str = "aghq",
 
     family_is_coxph = family in ("Coxph", "coxph")
     family_is_cc = family in ("casecrossover", "cc", "CaseCrossover")
-    if family == "Customized":
-        raise NotImplementedError(
-            "customized families are not ported yet (ROADMAP Queue 1 "
-            "item 3)")
 
     # banded candidacy (decided before the build to skip the dense B)
     fam_elementwise = family in ("Gaussian", "Poisson", "Binomial")
@@ -177,13 +176,28 @@ def assemble_model(formula=None, data=None, method: str = "aghq",
         cc_arrays = build_mod.build_cc_strata(
             np.asarray(data[response]), np.asarray(data[strata]), w_arr)
 
+    custom_name = ""
+    if family == "Customized":
+        if customized_template is None:
+            raise ValueError(
+                "family='Customized' needs customized_template= (a "
+                "registered family name or a loglik(eta, y, theta) callable)")
+        if callable(customized_template):
+            custom_name = getattr(customized_template, "__name__",
+                                  "custom") + f"_{id(customized_template):x}"
+            families.register_family(custom_name, customized_template)
+        else:
+            custom_name = str(customized_template)
+            families.custom_family(custom_name)     # raises if unregistered
+
     md = build_mod.build_model_data(
         instances, design_mat_fixed, np.asarray(data[response], np.float64),
         family, control_family=control_family_n,
         control_fixed_prec=bf_prec, control_fixed_mean=bf_mean,
         size=(data[size] if size else None),
         cens=(data[cens] if (cens and cens in data) else None),
-        cc_arrays=cc_arrays, dense_design=not use_banded)
+        cc_arrays=cc_arrays, dense_design=not use_banded,
+        custom_family=custom_name)
 
     theta_count = md.n_theta
     if theta_count == 0 and method != "nlminb":
@@ -268,9 +282,9 @@ def model_fit(formula=None, data=None, method: str = "aghq",
               family: str = "Gaussian", control_family=None,
               control_fixed=None, aghq_k: int = 4, size=None, cens=None,
               weight=None, strata=None, M: int = 3000, env=None,
-              customized_re=None, seed: int = 0, terms=None, fixed=None,
-              response=None, engine: str = "auto", theta0=None,
-              timing: bool = False, predict_at=None,
+              customized_re=None, customized_template=None, seed: int = 0,
+              terms=None, fixed=None, response=None, engine: str = "auto",
+              theta0=None, timing: bool = False, predict_at=None,
               device="cuda") -> FitResult:
     """Fit a Bayesian hierarchical GP model.
 
@@ -290,6 +304,14 @@ def model_fit(formula=None, data=None, method: str = "aghq",
       a dense tail); and, where the merge refuses an IID term of more
       than 4,000 levels, or with engine='scatter_iid', one IWP smooth
       plus one IID term (the scattered-IID engine);
+    - method='aghq' on the dense backend for the other families:
+      family='Coxph' (cens= names the censoring column; the rows are
+      sorted by the response, and no intercept is fitted), 'cc' (the
+      case-crossover likelihood; strata= names the stratum column,
+      weight= the optional case counts; no intercept), 'none' (prior
+      only) and 'Customized' with customized_template= a loglik(eta, y,
+      theta) callable or a name registered by register_family (its extra
+      hyperparameters come last in theta);
     - method='nlminb' for a model with no hyperparameter: the posterior
       mode of W and M draws from the Gaussian at its Hessian.
 
@@ -321,8 +343,9 @@ def model_fit(formula=None, data=None, method: str = "aghq",
             formula=formula, data=data, method=method, family=family,
             control_family=control_family, control_fixed=control_fixed,
             size=size, cens=cens, weight=weight, strata=strata, env=env,
-            customized_re=customized_re, terms=terms, fixed=fixed,
-            response=response, engine=engine)
+            customized_re=customized_re,
+            customized_template=customized_template, terms=terms,
+            fixed=fixed, response=response, engine=engine)
     instances, md = asm["instances"], asm["md"]
     fixed_names = asm["fixed_names"]
 

@@ -20,7 +20,9 @@ replicate fit, which both packages take as numpy.
 A dense model is a ModelData: `model_data_arrays` gives its arrays and
 layout as host numpy (of either package's ModelData),
 `model_data_from_arrays` this package's ModelData with them as tensors on
-a device, which the dense objective and Laplace functions take.
+a device, which the dense objective and Laplace functions take. A
+customized family travels by its name, registered in each package with
+that package's loglik.
 """
 from __future__ import annotations
 
@@ -52,7 +54,8 @@ BANDED_SCALARS = ("drv_theta", "Wl", "G", "d", "dpad", "d_drv",
 DENSE_FIELDS = ("A", "y", "P_blocks", "logPdet", "u", "alpha", "betaprec",
                 "betamean", "bf_prec", "bf_mean", "size", "cens", "ranks",
                 "case_day", "control_days", "count")
-LAYOUT_FIELDS = ("family", "d_sizes", "x_sizes", "xf_count")
+LAYOUT_FIELDS = ("family", "d_sizes", "x_sizes", "xf_count",
+                 "custom_family")
 
 
 def model_data_arrays(md) -> dict:
@@ -63,7 +66,8 @@ def model_data_arrays(md) -> dict:
     out.update(family=int(md.family),
                d_sizes=tuple(int(x) for x in md.d_sizes),
                x_sizes=tuple(int(x) for x in md.x_sizes),
-               xf_count=int(md.xf_count))
+               xf_count=int(md.xf_count),
+               custom_family=str(md.custom_family))
     return out
 
 

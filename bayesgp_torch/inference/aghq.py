@@ -88,7 +88,10 @@ class DenseBackend(HostNodes):
         """Per-theta penalized dimensions for optimize_1d's EM-style jump:
         the prior contributes -0.5 d_r theta_r per random effect (d_r
         spline coefficients, src/BayesGP.cpp:227-232), and the Gaussian
-        noise theta gets d = n from the likelihood."""
+        noise theta gets d = n from the likelihood. A customized family
+        has no such structure: None (no jump)."""
+        if self.md.family == -1 and self.md.custom_family:
+            return None
         dims = [float(d) for d in self.md.d_sizes]
         if self.md.family == 0:
             dims.append(float(self.md.n))
@@ -173,16 +176,19 @@ def optimize_1d(backend, theta0: float = 0.0, tol: float = TOL,
     order the JAX package's single-program fit runs it: a boot
     evaluation at theta0; EM-style jumps th + log(d / (2(g - hp') + d))
     while far from the mode (d = em_dims[0], hp' the slope of the
-    exponential hyperprior); secant steps under a trust cap that doubles
-    (to 16) on consecutive full steps in one direction and shrinks 4x on
-    a rejected step; a sign flip of the gradient within a short step
-    triggers one final secant interpolation and stops. Then the outer
-    curvature by central differences of the gradient at mode +/- H_FD,
-    both warm-started from the mode's latent state."""
+    exponential hyperprior; no jump where em_dims is None); secant steps
+    under a trust cap that doubles (to 16) on consecutive full steps in
+    one direction and shrinks 4x on a rejected step; a sign flip of the
+    gradient within a short step triggers one final secant interpolation
+    and stops. Then the outer curvature by central differences of the
+    gradient at mode +/- H_FD, both warm-started from the mode's latent
+    state."""
     dev = backend.device
-    em_dim = float(backend.em_dims[0])
-    em_phi = float(-math.log(float(backend.md.alpha[0]))
-                   / float(backend.md.u[0]))
+    em_dims = backend.em_dims
+    if em_dims is not None:
+        em_dim = float(em_dims[0])
+        em_phi = float(-math.log(float(backend.md.alpha[0]))
+                       / float(backend.md.u[0]))
 
     def vg(th, state):
         val, g, st = backend.value_and_grad(
@@ -196,14 +202,16 @@ def optimize_1d(backend, theta0: float = 0.0, tol: float = TOL,
         boot = it == 0
         h = h_est if h_est > 0 else max(abs(g), 1.0)
         step = float(np.clip(g / h, -cap, cap))
-        hp = 0.5 - 0.5 * em_phi * math.exp(-0.5 * th)
-        A = 2.0 * (g - hp) + em_dim
-        em = float(np.clip(math.log(em_dim) - math.log(max(A, 1e-4 * em_dim)),
-                           -8.0, 8.0))
-        # far from the mode and not recovering from a rejection
-        use_em = abs(em) > 0.5 and cap >= 2.0 and not boot
-        if use_em:
-            step = -em
+        use_em = False
+        if em_dims is not None:
+            hp = 0.5 - 0.5 * em_phi * math.exp(-0.5 * th)
+            A = 2.0 * (g - hp) + em_dim
+            em = float(np.clip(math.log(em_dim)
+                               - math.log(max(A, 1e-4 * em_dim)), -8.0, 8.0))
+            # far from the mode and not recovering from a rejection
+            use_em = abs(em) > 0.5 and cap >= 2.0 and not boot
+            if use_em:
+                step = -em
         if boot:
             step = 0.0
         full = (not use_em) and abs(step) >= cap * 0.999

@@ -15,6 +15,8 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 
+from .families import custom_family as registered_family
+
 FAMILY_CODES = {
     "Gaussian": 0, "Poisson": 1, "Binomial": 2,
     "Coxph": 3, "coxph": 3,
@@ -49,7 +51,10 @@ class ModelData:
     d_sizes: Tuple[int, ...]
     x_sizes: Tuple[int, ...]
     xf_count: int
-    custom_family: str = ""
+    custom_family: str = ""     # name of a registered customized family
+    # made by objective.to_device from the fields above (model/families.py)
+    rank_wts: Any = None        # Coxph event mass per rank (n,)
+    cc_plan: Any = None         # cc gathers (families.CCPlan)
 
     @property
     def n(self):
@@ -61,7 +66,8 @@ class ModelData:
 
     @property
     def n_theta(self):
-        return len(self.d_sizes) + (1 if self.family == 0 else 0)
+        return len(self.d_sizes) + _n_family_theta(self.family,
+                                                   self.custom_family)
 
     def u_slices(self):
         out, off = [], 0
@@ -79,6 +85,16 @@ class ModelData:
 
     def fixed_offset(self):
         return sum(self.d_sizes) + sum(self.x_sizes)
+
+
+def _n_family_theta(fam, custom_family):
+    """Hyperparameters of the likelihood: the Gaussian's noise, a
+    customized family's registered extras."""
+    if fam == 0:
+        return 1
+    if fam == -1 and custom_family:
+        return registered_family(custom_family)[1]
+    return 0
 
 
 def _rank_min(y: np.ndarray) -> np.ndarray:
@@ -155,11 +171,7 @@ def build_model_data(terms, design_mat_fixed, y, family: str, *,
 
     u = [t.sd_prior["param"]["u"] for t in terms]
     alpha = [t.sd_prior["param"]["alpha"] for t in terms]
-    if fam == -1:
-        raise NotImplementedError(
-            "customized families are not ported yet (ROADMAP Queue 1 item 3)")
-    n_extra = 1 if fam == 0 else 0
-    for _ in range(n_extra):
+    for _ in range(_n_family_theta(fam, custom_family)):
         cf = control_family or {"sd_prior": {"param": {"u": 1.0, "alpha": 0.5}}}
         u.append(cf["sd_prior"]["param"]["u"])
         alpha.append(cf["sd_prior"]["param"]["alpha"])

@@ -22,7 +22,9 @@ from . import families
 
 def to_device(md, device):
     """md with every array field an f64 (integer fields: int64) tensor on
-    `device`; layout fields unchanged."""
+    `device`; layout fields unchanged. The partial likelihoods' host-built
+    structures come with it: `rank_wts` for CoxPH, `cc_plan` for
+    case-crossover (model/families.py)."""
     def put(v):
         if isinstance(v, torch.Tensor):
             return v.to(device)
@@ -30,11 +32,21 @@ def to_device(md, device):
         dt = torch.int64 if np.issubdtype(a.dtype, np.integer) else DTYPE
         return torch.as_tensor(a, dtype=dt, device=device)
 
+    def host(v):
+        return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+
     arrays = {f.name: getattr(md, f.name) for f in dataclasses.fields(md)
               if f.name not in ("family", "d_sizes", "x_sizes", "xf_count",
-                                "custom_family")}
+                                "custom_family", "rank_wts", "cc_plan")}
     out = {k: (tuple(put(b) for b in v) if k == "P_blocks" else put(v))
            for k, v in arrays.items()}
+    if md.family == 3:
+        out["rank_wts"] = put(families.coxph_rank_wts(host(md.ranks),
+                                                      host(md.cens)))
+    if md.family == 4:
+        out["cc_plan"] = families.cc_plan(host(md.case_day),
+                                          host(md.control_days),
+                                          int(md.A.shape[0]), device)
     return dataclasses.replace(md, **out)
 
 
@@ -101,25 +113,21 @@ def prior_precision(theta, md):
     return torch.block_diag(*blocks)
 
 
-def _check_diag(md):
-    if md.family not in (0, 1, 2):
-        raise NotImplementedError(
-            "the structured Hessian of the partial-likelihood families "
-            "(families.eta_hessian_quadform) is not ported yet (ROADMAP "
-            "Queue 1 item 8)")
-
-
 def grad_W(W, theta, md):
     """d neg_log_post / dW = A^T r + Q (W - m), r = d(-ll)/d eta and m the
     prior means (_prior_mean)."""
-    _check_diag(md)
     r = families.eta_residual(linear_predictor(W, md), md, theta)
     return r @ md.A + (W - _prior_mean(md)) @ prior_precision(theta, md)
 
 
 def hessian_W(W, theta, md):
-    """Exact Hessian of neg_log_post in W for the elementwise ("diag")
-    families: A^T diag(w) A + Q(theta), eta being linear in W."""
-    _check_diag(md)
-    wts = families.eta_weights(linear_predictor(W, md), md, theta)
-    return (md.A * wts[:, None]).T @ md.A + prior_precision(theta, md)
+    """Exact Hessian of neg_log_post in W, eta being linear in W: A^T
+    diag(w) A + Q(theta) for the elementwise ("diag") families, A^T M A +
+    Q(theta) with the structured M of the others
+    (families.eta_hessian_quadform)."""
+    eta = linear_predictor(W, md)
+    Q = prior_precision(theta, md)
+    if families.eta_hessian_kind(md.family) == "diag":
+        wts = families.eta_weights(eta, md, theta)
+        return (md.A * wts[:, None]).T @ md.A + Q
+    return families.eta_hessian_quadform(eta, md, theta, md.A) + Q

@@ -144,7 +144,11 @@ class FitResult:
         """Posterior of an IWP or sGP component at new locations
         (reference predict.FitResult, R/03_post_fit.R:53-125), on the
         host, from the draws in reference order (a multi-term fit's too).
-        Output rows are in sorted-x order."""
+        Output rows are in sorted-x order. The partial likelihoods
+        (CoxPH, case-crossover) have no intercept to add."""
+        if self.family in ("Coxph", "coxph", "cc", "casecrossover",
+                           "CaseCrossover"):
+            include_intercept = False
         inst = self._instance_for(variable)
         if inst.kind not in ("IWP", "sGP"):
             raise ValueError(f"predict not defined for {inst.kind} terms")
@@ -222,8 +226,9 @@ class FitResult:
             return None
         rows = summarize_marginals(self.mod)
         names = [f"theta({t.smoothing_var})" for t in self.instances]
-        if len(rows) > len(names):
-            names.append("theta(family)")
+        extra = len(rows) - len(names)
+        names += (["theta(family)"] if extra == 1 else
+                  [f"theta(family{j})" for j in range(1, extra + 1)])
         return dict(zip(names, rows))
 
     def summary(self):

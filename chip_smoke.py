@@ -103,10 +103,33 @@ Phases (any failure raises and the script exits non-zero):
      mode, the nll at it and its gradient held to
      tests/test_two_smooth_golden.py; the backend and its (d, bw, q);
      K1-K5 at the sGP driver's (dpad, bw, q) against their plain versions,
-     with bound and library times.
+     with bound and library times;
+ 23. CoxPH, BASELINE config 3 (bench_extra.py:217-247, uncut: n = 4000,
+     seed 0, time ~ sex + IWP2 k = 30 in age, cens, AGHQ k = 4, M = 1000)
+     twice, the fits equal bit for bit, held to the JAX package's CPU-f64
+     model_fit of the same call (PARTIAL_JAX, from
+     tools/torch_partial_reference.py: mode within PARTIAL_MODE_TOL =
+     1e-5, lognormconst within PARTIAL_LNC_TOL = 1e-4 nats), no intercept,
+     the sex effect near its simulated -0.8; fit wall, Laplace
+     evaluations, Newton steps, host syncs, peak memory; a profiled cold
+     Laplace evaluation with its busy share;
+ 24. the case-crossover vignette (tests/test_partial_likelihood.py:9-22:
+     sim1data, IWP2 k = 30 at the median exposure, strata='subject',
+     M = 1000, seed 7) twice, bit for bit, held to PARTIAL_JAX at the
+     same tolerances and to that file's checks (rmse below the band's
+     width, more than 80% of the truth inside the band, no intercept);
+ 25. the covid fit of phase 18 with family='Customized' and a torch
+     Poisson loglik (poisson_loglik), held to the golden constants and to
+     phase 18's fit (mode within 1e-5, lognormconst within 1e-4 nats); a
+     negative binomial loglik (nb_loglik) registered by name with one
+     extra theta (NB_N = 200 rows, IWP2 k = 10, s = 2) held to
+     PARTIAL_JAX; a family='none' fit whose Laplace value at
+     PRIOR_ONLY_THETA equals the JAX package's within PRIOR_ONLY_RTOL =
+     1e-10.
 No kernel of K1-K11 is on the dense route (torch.linalg carries it, as
 XLA's Cholesky carries the JAX package's): phases 18-20 log the kernel
-launch counts, set to 0 before each and read after it.
+launch counts, set to 0 before each and read after it; phases 23-25 also
+require them to read 0.
 Phase 1 builds csrc/band_kernels.cu (K1-K5, K8-K11) and
 csrc/dense_kernels.cu (K6, K7) with two nvcc processes started together;
 phase 2 also checks K1 bit for bit with its one (farthest-first) plain
@@ -289,6 +312,29 @@ TWO_SMOOTHS_FORMULA = ("y ~ f(x=x, model='IWP', order=2, k=k_iwp) "
 TWO_SMOOTHS_MODE = (11.07, 14.09, 2.42)
 TWO_SMOOTHS_MODE_TOL = 0.15
 TWO_SMOOTHS_NLL, TWO_SMOOTHS_NLL_TOL, TWO_SMOOTHS_GRAD_MAX = 3883.0, 5.0, 5.0
+# the partial-likelihood and customized families (dense route): CoxPH,
+# BASELINE config 3 (bench_extra.py:217-247, uncut); the case-crossover
+# vignette (tests/test_partial_likelihood.py:9-22); a customized negative
+# binomial with one extra theta and a prior-only model on NB_N rows. The
+# JAX package's model_fit of each (laplace_nll at PRIOR_ONLY_THETA for the
+# prior-only model) on the CPU in f64, from
+# tools/torch_partial_reference.py; the card's fits are held to them
+# within PARTIAL_MODE_TOL in the mode and PARTIAL_LNC_TOL nats
+COXPH_N = 4000
+COXPH_FORMULA = "time ~ sex + f(x=age, model='IWP', order=2, k=30)"
+NB_N = 200
+NB_FORMULA = "y ~ f(x, model='IWP', order=2, k=10)"
+NB_FAMILY = "chip_smoke_negative_binomial"
+PRIOR_ONLY_THETA = 1.0
+PARTIAL_JAX = {
+    "coxph": {"mode": [8.548743111965951],
+              "lognormconst": -18864.02537795463},
+    "cc": {"mode": [-2.0842996958679554],
+           "lognormconst": -1242.030668642676},
+    "nb": {"mode": [0.09162073042090493, 1.495531125573509],
+           "lognormconst": -421.03584171152},
+    "prior_only": {"nll": -12.733418933394905}}
+PARTIAL_MODE_TOL, PARTIAL_LNC_TOL, PRIOR_ONLY_RTOL = 1e-5, 1e-4, 1e-10
 
 
 T_START = time.perf_counter()
@@ -2239,6 +2285,31 @@ def require_same_fit(label, a, b):
     require(same, f"{label}: two fits on the card agree bit for bit")
 
 
+def require_covid_golden(label, fit):
+    """Hold a covid fit to the golden constants of
+    tests/test_golden_covid.py at that file's tolerances."""
+    g = COVID_GOLDEN
+    mode, lnc = float(fit.mod.mode[0]), float(fit.mod.lognormconst)
+    cov = float(np.linalg.inv(fit.mod.hessian)[0, 0])
+    ts = fit.theta_summary()["theta(t)"]
+    fx = fit.fixed_effects_summary()
+    log(f"  {label}: mode {mode:.6f} (golden {g['mode']}), lognormconst "
+        f"{lnc:.6f} (golden {g['lognormconst']}), quadrature cov {cov:.6f} "
+        f"(golden {g['quad_cov']})")
+    log(f"  theta(t): {ts}")
+    require(abs(mode - g["mode"]) < 5e-4, f"{label} mode {mode}")
+    require(abs(lnc - g["lognormconst"]) < 2e-3, f"{label} lnc {lnc}")
+    require(abs(cov - g["quad_cov"]) < 5e-3, f"{label} quad cov {cov}")
+    for key, tol in (("mean", 1e-4), ("sd", 1e-3), ("median", 5e-3),
+                     ("q2.5", 1e-2), ("q97.5", 1e-2)):
+        require(abs(ts[key] - g[key]) < tol, f"{label} theta {key}")
+    names = ["intercept"] + [f"weekdays{i}" for i in range(1, 7)]
+    for name, want, tol in zip(names, g["fixed_means"],
+                               [0.15] + [0.004] * 6):
+        require(abs(fx[name]["Mean"] - want) < tol,
+                f"{label} fixed mean {name}: {fx[name]['Mean']}")
+
+
 def phase_covid(tbg, dense_backend, kernels, dev):
     log("== phase 18: the README covid fit on the dense route (n=787, "
         "IWP3 k=30, Poisson, AGHQ k=4, M=3000)")
@@ -2254,26 +2325,7 @@ def phase_covid(tbg, dense_backend, kernels, dev):
     log_dense_fit("fit 2", wall2, st2, peak2)
     log("  phases of fit 2:\n" + fit2.timing.summary())
     require_same_fit("covid", fit, fit2)
-    g = COVID_GOLDEN
-    mode, lnc = float(fit.mod.mode[0]), float(fit.mod.lognormconst)
-    cov = float(np.linalg.inv(fit.mod.hessian)[0, 0])
-    ts = fit.theta_summary()["theta(t)"]
-    fx = fit.fixed_effects_summary()
-    log(f"  mode {mode:.6f} (golden {g['mode']}), lognormconst {lnc:.6f} "
-        f"(golden {g['lognormconst']}), quadrature cov {cov:.6f} (golden "
-        f"{g['quad_cov']})")
-    log(f"  theta(t): {ts}")
-    require(abs(mode - g["mode"]) < 5e-4, f"covid mode {mode}")
-    require(abs(lnc - g["lognormconst"]) < 2e-3, f"covid lnc {lnc}")
-    require(abs(cov - g["quad_cov"]) < 5e-3, f"covid quad cov {cov}")
-    for key, tol in (("mean", 1e-4), ("sd", 1e-3), ("median", 5e-3),
-                     ("q2.5", 1e-2), ("q97.5", 1e-2)):
-        require(abs(ts[key] - g[key]) < tol, f"covid theta {key}")
-    names = ["intercept"] + [f"weekdays{i}" for i in range(1, 7)]
-    for name, want, tol in zip(names, g["fixed_means"],
-                               [0.15] + [0.004] * 6):
-        require(abs(fx[name]["Mean"] - want) < tol,
-                f"covid fixed mean {name}: {fx[name]['Mean']}")
+    require_covid_golden("covid", fit)
     # the post-fit pins of tests/test_golden_covid.py
     text = fit.summary()
     require("AGHQ on a 1 dimensional posterior with  4 quadrature points"
@@ -2310,7 +2362,7 @@ def phase_covid(tbg, dense_backend, kernels, dev):
     log(f"  save_fit/load_fit round trip, predict after the load equal: "
         f"{same}")
     require(same, "covid save/load round trip")
-    return wall1, wall2, st1
+    return fit, wall1, wall2, st1
 
 
 def lynx_kwargs(tbg):
@@ -2644,6 +2696,192 @@ def phase_two_smooths(tbg, bk, dev):
     return wall, rows
 
 
+# -- the partial-likelihood and customized families -------------------------
+def coxph_data(n=COXPH_N, seed=0):
+    """bench_extra.py's bench_coxph generator (BASELINE config 3)."""
+    rng = np.random.default_rng(seed)
+    age = rng.uniform(20, 80, n)
+    sex = rng.integers(0, 2, n).astype(float)
+    lam = np.exp(0.3 * np.sin(age / 8.0) - 0.8 * sex)
+    t_ev = rng.exponential(1.0 / lam)
+    t_c = rng.exponential(2.0 / lam.mean(), n)
+    return {"time": np.minimum(t_ev, t_c), "age": age, "sex": sex,
+            "cens": (t_ev <= t_c).astype(float)}
+
+
+def cc_call(tbg):
+    """(formula, model_fit keywords but the device) of the case-crossover
+    vignette, tests/test_partial_likelihood.py:9-22."""
+    data = tbg.datasets.sim1data()
+    med = float(np.median(data["exposure"]))
+    return (f"case ~ f(x=exposure, model='IWP', order=2, k=30, "
+            f"initial_location={med}, sd_prior=dict(prior='exp', "
+            "param=dict(u=1, alpha=0.5)))",
+            dict(data=data, family="cc", strata="subject", method="aghq",
+                 M=1000, seed=7))
+
+
+def nb_data(n=NB_N, seed=2):
+    """Counts with a smooth log mean, negative binomial of size 3."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(0, 5, n))
+    mu = np.exp(0.5 * np.sin(x) + 1.0)
+    return {"y": rng.negative_binomial(3.0, 3.0 / (3.0 + mu)).astype(float),
+            "x": x}
+
+
+def nb_loglik(eta, y, theta):
+    """Negative binomial log likelihood, mean e^eta, size e^theta_last."""
+    lr = theta[-1]
+    r = torch.exp(lr)
+    return torch.sum(torch.lgamma(y + r) - torch.lgamma(r)
+                     - torch.lgamma(y + 1.0) + r * lr + y * eta
+                     - (r + y) * torch.logaddexp(lr.expand(eta.shape), eta))
+
+
+def poisson_loglik(eta, y, theta):
+    """The built-in Poisson family's log likelihood as a user writes it."""
+    return torch.sum(y * eta - torch.exp(eta) - torch.lgamma(y + 1.0))
+
+
+def partial_cases(tbg):
+    """(label, formula, model_fit keywords but the device) of the fits
+    phases 23-25 hold to PARTIAL_JAX; tools/torch_partial_reference.py
+    makes the same calls on the CPU."""
+    tbg.register_family(NB_FAMILY, nb_loglik, n_theta_extra=1)
+    formula, kw = cc_call(tbg)
+    return (("coxph", COXPH_FORMULA,
+             dict(data=coxph_data(), family="Coxph", cens="cens", M=1000,
+                  seed=0)),
+            ("cc", formula, kw),
+            ("nb", NB_FORMULA,
+             dict(data=nb_data(), family="Customized",
+                  customized_template=NB_FAMILY, M=1000, seed=0)),
+            ("prior_only", NB_FORMULA,
+             dict(data=nb_data(), family="none", M=500, seed=0)))
+
+
+def require_jax_fit(label, fit):
+    """Hold one fit's mode and lognormconst to PARTIAL_JAX[label]."""
+    ref = PARTIAL_JAX[label]
+    mode = np.asarray(fit.mod.mode, float)
+    gap_mode = float(np.abs(mode - np.asarray(ref["mode"])).max())
+    gap_lnc = abs(float(fit.mod.lognormconst) - ref["lognormconst"])
+    log(f"  {label}: mode {np.round(mode, 9).tolist()}, lognormconst "
+        f"{float(fit.mod.lognormconst):.9f}; against the JAX package's "
+        f"CPU-f64 fit: mode {gap_mode:.3e} (tolerance {PARTIAL_MODE_TOL:g}),"
+        f" lognormconst {gap_lnc:.3e} (tolerance {PARTIAL_LNC_TOL:g})")
+    require(gap_mode < PARTIAL_MODE_TOL and gap_lnc < PARTIAL_LNC_TOL,
+            f"{label} against the JAX package's CPU fit")
+
+
+def require_no_launches(label, kernels):
+    launches = kernels[1]()
+    log(f"  launches of K1-K11 in the {label} fits: {launches}")
+    require(not any(launches.values()), f"no kernel launch in {label}")
+
+
+def phase_coxph(tbg, dense_backend, kernels, dev):
+    log(f"== phase 23: CoxPH, BASELINE config 3 (n={COXPH_N}, IWP2 k=30 + "
+        "sex, AGHQ k=4, M=1000) on the dense route")
+    (_, formula, kw), *_ = partial_cases(tbg)
+    kernels[0]()
+    fit, wall1, st1, peak1 = dense_fit(tbg, formula, device=dev, **kw)
+    fit2, wall2, st2, peak2 = dense_fit(tbg, formula, device=dev, **kw)
+    require_no_launches("CoxPH", kernels)
+    be = fit.mod.backend
+    require(isinstance(be, dense_backend), "the CoxPH fit takes the dense "
+            "route")
+    log_dense_fit("fit 1", wall1, st1, peak1)
+    log_dense_fit("fit 2", wall2, st2, peak2)
+    log(f"  w = {be.md.w_count}, fixed effects {fit.fixed_names}")
+    require_same_fit("CoxPH", fit, fit2)
+    require_jax_fit("coxph", fit)
+    require(fit.fixed_names == ["sex"] and np.all(np.isfinite(fit.samps)),
+            "CoxPH: no intercept, finite draws")
+    sex = float(fit.sample_fixed_effect("sex").mean())
+    log(f"  posterior mean of the sex effect {sex:.4f} (simulated -0.8)")
+    require(abs(sex + 0.8) < 0.2, "CoxPH sex effect")
+    th = torch.tensor(fit.mod.mode, dtype=torch.float64, device=dev)
+    profile_run("one Laplace evaluation with its gradient, cold start, "
+                "CoxPH n=4000", lambda: be.value_and_grad(th, be.init_state()))
+    return wall1, wall2
+
+
+def phase_cc(tbg, dense_backend, kernels, dev):
+    log("== phase 24: the case-crossover vignette on sim1data (3,596 rows, "
+        "899 strata, IWP2 k=30, AGHQ k=4, M=1000) on the dense route")
+    _, (_, formula, kw), *_ = partial_cases(tbg)
+    kernels[0]()
+    fit, wall1, st1, peak1 = dense_fit(tbg, formula, device=dev, **kw)
+    fit2, wall2, st2, peak2 = dense_fit(tbg, formula, device=dev, **kw)
+    require_no_launches("case-crossover", kernels)
+    require(isinstance(fit.mod.backend, dense_backend),
+            "the case-crossover fit takes the dense route")
+    log_dense_fit("fit 1", wall1, st1, peak1)
+    log_dense_fit("fit 2", wall2, st2, peak2)
+    require_same_fit("case-crossover", fit, fit2)
+    require_jax_fit("cc", fit)
+    # tests/test_partial_likelihood.py:25-44
+    med = float(np.median(kw["data"]["exposure"]))
+    grid = np.linspace(0.05, 0.95, 19)
+    pred = fit.predict("exposure", newdata={"exposure": grid})
+    true_c = 3 * (grid ** 2 - 0.5 ** 2) - 3 * (med ** 2 - 0.5 ** 2)
+    rmse = float(np.sqrt(np.mean((pred["mean"] - true_c) ** 2)))
+    spread = float(np.mean(pred["pupper"] - pred["plower"]))
+    inside = float(np.mean((true_c >= pred["plower"])
+                           & (true_c <= pred["pupper"])))
+    log(f"  recovery: rmse {rmse:.4f} < band width {spread:.4f}; truth "
+        f"inside the band at {100 * inside:.0f}% of the grid (> 80%)")
+    require(rmse < spread and inside > 0.8, "cc recovers the true effect")
+    require("intercept" not in fit.fixed_samp_indexes, "cc: no intercept")
+    return wall1, wall2
+
+
+def phase_custom(tbg, dense_backend, kernels, dev, covid):
+    log("== phase 25: customized families and prior only on the dense "
+        "route: the covid fit with a user Poisson loglik, a negative "
+        "binomial with one extra theta (s=2), family='none'")
+    *_, (_, nb_formula, nb_kw), (_, po_formula, po_kw) = partial_cases(tbg)
+    kernels[0]()
+    kw = dict(data=tbg.datasets.covid_canada(), family="Customized",
+              customized_template=poisson_loglik, method="aghq", M=3000,
+              seed=1, device=dev)
+    fit, cwall, cst, cpeak = dense_fit(tbg, COVID_FORMULA, **kw)
+    log_dense_fit("covid, customized Poisson", cwall, cst, cpeak)
+    require(isinstance(fit.mod.backend, dense_backend)
+            and fit.mod.backend.em_dims is None,
+            "the customized covid fit: dense route, no EM jump")
+    require_covid_golden("covid, customized Poisson", fit)
+    gap_mode = float(np.abs(fit.mod.mode - covid.mod.mode).max())
+    gap_lnc = abs(fit.mod.lognormconst - covid.mod.lognormconst)
+    log(f"  against phase 18's built-in Poisson fit: mode {gap_mode:.3e} "
+        f"(tolerance {PARTIAL_MODE_TOL:g}), lognormconst {gap_lnc:.3e} "
+        f"(tolerance {PARTIAL_LNC_TOL:g})")
+    require(gap_mode < PARTIAL_MODE_TOL and gap_lnc < PARTIAL_LNC_TOL,
+            "the customized covid fit against the built-in Poisson fit")
+    nb, nwall, nst, npeak = dense_fit(tbg, nb_formula, device=dev, **nb_kw)
+    log_dense_fit("negative binomial, s=2", nwall, nst, npeak)
+    require_jax_fit("nb", nb)
+    log(f"  theta_summary keys {list(nb.theta_summary())}")
+    require(list(nb.theta_summary()) == ["theta(x)", "theta(family)"]
+            and np.all(np.isfinite(nb.samps)), "negative binomial fit")
+    po, pwall, pst, ppeak = dense_fit(tbg, po_formula, device=dev, **po_kw)
+    log_dense_fit("prior only", pwall, pst, ppeak)
+    be = po.mod.backend
+    val = float(be.value_and_grad(
+        torch.tensor([PRIOR_ONLY_THETA], dtype=torch.float64, device=dev),
+        be.init_state())[0])
+    want = PARTIAL_JAX["prior_only"]["nll"]
+    log(f"  prior only: Laplace value at theta {PRIOR_ONLY_THETA} "
+        f"{val:.12f}, the JAX package's {want:.12f} (rtol "
+        f"{PRIOR_ONLY_RTOL:g}); mode {po.mod.mode.tolist()}")
+    require(abs(val - want) <= PRIOR_ONLY_RTOL * abs(want)
+            and np.all(np.isfinite(po.samps)), "prior-only fit")
+    require_no_launches("customized and prior-only", kernels)
+    return cwall, nwall, pwall
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2727,11 +2965,15 @@ def main():
         require(k4_n > 0, "K4 ran in the merged evaluation")
     counts = (lambda: reset_all_launches(bk, bb, cd),
               lambda: kernel_launches(bk, bb, cd))
-    cwall1, cwall2, cstats = phase_covid(tbg, DenseBackend, counts, dev)
+    covid, cwall1, cwall2, cstats = phase_covid(tbg, DenseBackend, counts,
+                                                dev)
     lwall, lbwall = phase_lynx(tbg, DenseBackend, counts, dev)
     dwalls = phase_dense_boundary(tbg, DenseBackend, counts, dev)
     (gwall, gcalls, glaunches, gpeak), gspread = phase_gauss2(bk, dev)
     two_wall, sgp_rows = phase_two_smooths(tbg, bk, dev)
+    xwalls = phase_coxph(tbg, DenseBackend, counts, dev)
+    ccwalls = phase_cc(tbg, DenseBackend, counts, dev)
+    uwalls = phase_custom(tbg, DenseBackend, counts, dev, covid)
 
     kernels = []
     for name, r in rows.items():
@@ -2783,6 +3025,11 @@ def main():
     log(f"banded lynx wall s: {lbwall:.3f}; gauss2 fit wall s {gwall:.3f} "
         f"({gcalls}, peak {gpeak:.1f} MiB), Laplace value spread at its "
         f"mode {gspread:.3e} nats; two_smooths fit wall s {two_wall:.3f}")
+    log(f"partial-likelihood and customized fit wall s: CoxPH first "
+        f"{xwalls[0]:.3f}, second {xwalls[1]:.3f}; case-crossover first "
+        f"{ccwalls[0]:.3f}, second {ccwalls[1]:.3f}; customized covid "
+        f"{uwalls[0]:.3f}, negative binomial {uwalls[1]:.3f}, prior only "
+        f"{uwalls[2]:.3f}")
     log(f"script wall s: {time.perf_counter() - T_START:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())

@@ -28,7 +28,9 @@ def test_import_pulls_in_no_jax():
             "bayesgp_torch.fast.scatter_iid, bayesgp_torch.linalg.chol_dense, "
             "bayesgp_torch.fast.banded, bayesgp_torch.datasets, "
             "bayesgp_torch.model.objective, bayesgp_torch.inference.laplace, "
-            "bayesgp_torch.serialize; "
+            "bayesgp_torch.serialize, bayesgp_torch.model.families, "
+            "bayesgp_torch.model.build, bayesgp_torch.api, "
+            "bayesgp_torch.inference.aghq, bayesgp_torch.postfit; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'bayesgp_tpu')]; "
             "assert not bad, bad")
